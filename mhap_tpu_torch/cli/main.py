@@ -1,0 +1,161 @@
+"""MHAP-compatible command line for the PyTorch + CUDA port.
+
+    python -m mhap_tpu_torch.cli.main -s reads.fa [-q queries.fa]
+
+Same flags, presets, validation and stderr stats block as
+``mhap_tpu.cli.main`` (whose option parser it reuses), with the port's
+``TorchOverlapper`` on the GPU in place of the JAX pipeline.  Not ported
+yet: ``.dat`` input, ``-p`` (binary precompute) and ``-f`` (k-mer filter);
+they stop with an error.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+
+from mhap_tpu.cli.main import PRESETS, _load_reads, build_options, \
+    options_to_cfg
+from mhap_tpu.io.fasta import list_sequence_files
+from mhap_tpu.io.formats import write_lines
+
+
+def _not_ported(what: str) -> SystemExit:
+    return SystemExit(f"{what} is not ported to mhap_tpu_torch yet; use "
+                      "python -m mhap_tpu.cli.main")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    o = build_options()
+    if not o.process(argv):
+        return 0
+    st = o.get("--settings").value
+    if st < 0 or st > 3:
+        print("Please enter valid --settings flag. See options below:")
+        print(o.help_menu())
+        return 1
+    if st in PRESETS:
+        for name, val in PRESETS[st].items():
+            if not o.get(name).is_set:
+                o.get(name).value = val
+    if o.get("-p").value:
+        raise _not_ported("-p (binary precompute)")
+    if o.get("-f").value:
+        raise _not_ported("-f (k-mer filter)")
+    s_file, q_file = o.get("-s").value, o.get("-q").value
+    if not s_file:
+        print("Please set the -s option. See options below:")
+        print(o.help_menu())
+        return 1
+    for path in (s_file, q_file):
+        if path.endswith(".dat"):
+            raise _not_ported(".dat input")
+        if path and not os.path.exists(path):
+            print(f"Could not find requested file/folder: {path}")
+            return 1
+    checks = [
+        (o.get("-k").value <= 0, "k-mer size must be positive."),
+        (o.get("--num-min-matches").value <= 0,
+         "Minimum number of matches must be positive."),
+        (o.get("--min-store-length").value < 0,
+         "The minimum read length stored must be >=0."),
+        (o.get("--max-shift").value < -1.0,
+         "The minimum shift must be greater than -1."),
+        (not 0.0 <= o.get("--threshold").value <= 1.0,
+         "The second stage filter threshold must be 0<=threshold<=1.0."),
+    ]
+    for bad, msg in checks:
+        if bad:
+            print(msg)
+            return 1
+    print("Running with these settings:", file=sys.stderr)
+    print(o, file=sys.stderr)
+    from ..pipeline.overlapper import TorchOverlapper
+
+    t_total = time.time()
+    run_overlap(o, TorchOverlapper(options_to_cfg(o)))
+    print(f"Total time (s): {time.time() - t_total}", file=sys.stderr)
+    return 0
+
+
+def run_overlap(o, ov) -> None:
+    """Self/query loop and final stats of mhap_tpu.cli.main.run_overlap
+    (:320-450) on the port's overlapper ``ov``."""
+    store_full_id = o.get("--store-full-id").value
+    do_rc = not o.get("--no-rc").value
+    s_file, q_file = o.get("-s").value, o.get("-q").value
+    no_self, paf = o.get("--no-self").value, o.get("--paf").value
+    t0 = time.time()
+    print("Processing files for storage in reverse index...",
+          file=sys.stderr)
+    headers, reads = _load_reads(s_file, store_full_id)
+    box = ov.sketch_reads(reads, headers, do_rc=do_rc)
+    n_box = box.n_real
+    print(f"Processed {n_box} unique sequences (fwd and rev).",
+          file=sys.stderr)
+    print(f"Time (s) to read and hash from file: {time.time() - t0}",
+          file=sys.stderr)
+
+    out = sys.stdout
+    index = ov._build_index(box)
+    if not no_self or not q_file:
+        t0 = time.time()
+        q_sel = np.nonzero(box.is_fwd)[0]
+        write_lines(sorted(ov._find_matches(box, index, box, q_sel, True)),
+                    out, paf)
+        print(f"Time (s) to score and output to self: {time.time() - t0}",
+              file=sys.stderr)
+    offset = n_box // 2
+    if q_file:
+        for qf in list_sequence_files(q_file):
+            if qf.endswith(".dat"):
+                raise _not_ported(".dat input")
+            t0 = time.time()
+            qh, qreads = _load_reads(qf, store_full_id)
+            queries = ov.sketch_reads(qreads, qh, offset=offset, do_rc=False)
+            q_sel = np.arange(len(queries))
+            write_lines(sorted(ov._find_matches(box, index, queries, q_sel,
+                                                False)), out, paf)
+            offset += len(queries)
+            print(f"Processed {len(queries)} to sequences.",
+                  file=sys.stderr)
+            print(f"Time (s) to score, hash to-file, and output: "
+                  f"{time.time() - t0}", file=sys.stderr)
+    out.flush()
+    # final stats block, field-for-field with MhapMain.outputFinalStat
+    st = ov.stats
+    size = box.n_real
+    searched = float(st["sequences_searched"])
+    hit = float(st["sequences_hit"])
+    compared = float(st["sequences_fully_compared"])
+    matches = float(st["matches_processed"])
+
+    def jdiv(a, b):
+        if b == 0.0:
+            return float("nan") if a == 0.0 else float("inf")
+        return a / b
+
+    print(f"MinHash search time (s): {st['minhash_search_time']}",
+          file=sys.stderr)
+    print(f"Total matches found: {st['matches_processed']}",
+          file=sys.stderr)
+    print("Average number of matches per lookup: "
+          f"{jdiv(matches, searched)}", file=sys.stderr)
+    print("Average number of table elements processed per lookup: "
+          f"{jdiv(st['elements_processed'], searched)}", file=sys.stderr)
+    print("Average number of table elements processed per match: "
+          f"{jdiv(st['elements_processed'], matches)}", file=sys.stderr)
+    print("Average % of hashed sequences hit per lookup: "
+          f"{jdiv(hit, size * searched) * 100.0}", file=sys.stderr)
+    print("Average % of hashed sequences hit that are matches: "
+          f"{jdiv(matches, hit) * 100.0}", file=sys.stderr)
+    print("Average % of hashed sequences fully compared that are "
+          f"matches: {jdiv(matches, compared) * 100.0}", file=sys.stderr)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""Stage-1 weighted MinHash in PyTorch (counterpart of mhap_tpu/ops/minhash.py).
+
+Parity target: sketch/MinHashSketch.java:51-179.  Each distinct k-mer of a
+read seeds a xorshift64 stream with its 64-bit identity hash; for each of
+the H sketch slots it consumes ``weight`` stream values, and the slot keeps
+the k-mer whose window minimum is smallest as a signed 64-bit value (Java
+``long``), the earliest-inserted k-mer winning ties.  The slot stores the
+low half of the winner's hash on even slots and the high half on odd ones.
+
+``min_reduce_w1_ref`` and ``weighted_min_reduce_ref`` are the plain PyTorch
+versions of the two CUDA kernels in ``minhash_kernels.py``.  A row with no
+active k-mer yields zeros (the pipeline drops such rows).
+"""
+
+from __future__ import annotations
+
+import torch
+
+I64 = torch.int64
+I32 = torch.int32
+_I64_MAX = (1 << 63) - 1
+_I32_MAX = (1 << 31) - 1
+_SIGN = -(1 << 63)
+
+
+def xorshift(x: torch.Tensor) -> torch.Tensor:
+    """One step of the stream (MinHashSketch.java:139-142) on int64 bit
+    patterns: x ^= x << 21; x ^= x >>> 35; x ^= x << 4."""
+    x = x ^ (x << 21)
+    x = x ^ ((x >> 35) & ((1 << 29) - 1))
+    return x ^ (x << 4)
+
+
+def slot_halves(keys: torch.Tensor) -> torch.Tensor:
+    """[B, H] int64 winning hashes -> int32 sketch: low half on even
+    slots, high half on odd slots (ops/minhash.py:177-178)."""
+    lo = keys & 0xFFFFFFFF
+    hi = (keys >> 32) & 0xFFFFFFFF
+    even = (torch.arange(keys.shape[1], device=keys.device) % 2 == 0)
+    v = torch.where(even[None, :], lo, hi)
+    return (v - ((v >> 31) << 32)).to(I32)
+
+
+def weighted_min_reduce_ref(h: torch.Tensor, weight: torch.Tensor,
+                            active: torch.Tensor, tiebreak: torch.Tensor,
+                            num_hashes: int) -> torch.Tensor:
+    """Plain version of the weighted kernel.
+
+    h [B, n] int64 k-mer hashes, weight/tiebreak [B, n] int32, active
+    [B, n] bool.  Argmin per slot is lexicographic on (window minimum,
+    tiebreak).  Returns int32 [B, num_hashes]."""
+    B, n = h.shape
+    w = torch.where(active, weight.to(I64), 0)
+    w_max = int(w.max()) if w.numel() else 0
+    tb = torch.where(active, tiebreak.to(I64), _I32_MAX)
+    x = h.clone()
+    keys = torch.zeros((B, num_hashes), dtype=I64, device=h.device)
+    for s in range(num_hashes):
+        wm = torch.full((B, n), _I64_MAX, dtype=I64, device=h.device)
+        for t in range(w_max):
+            nxt = xorshift(x)
+            adv = t < w
+            x = torch.where(adv, nxt, x)
+            wm = torch.where(adv & (nxt < wm), nxt, wm)
+        m = wm.min(dim=1, keepdim=True).values
+        cand = active & (wm == m)
+        sel = torch.where(cand, tb, _I64_MAX).argmin(dim=1)
+        keys[:, s] = h.gather(1, sel[:, None])[:, 0]
+    keys = torch.where(active.any(dim=1, keepdim=True), keys, 0)
+    return slot_halves(keys)
+
+
+def min_reduce_w1_ref(h: torch.Tensor, active: torch.Tensor,
+                      num_hashes: int) -> torch.Tensor:
+    """Plain version of the weight-1 kernel: every active position steps
+    once per slot.  Duplicate positions of one k-mer may all be active;
+    they tie to the same stored key."""
+    B, n = h.shape
+    x = h.clone()
+    keys = torch.zeros((B, num_hashes), dtype=I64, device=h.device)
+    for s in range(num_hashes):
+        x = xorshift(x)
+        v = torch.where(active, x, _I64_MAX)
+        sel = v.argmin(dim=1)
+        keys[:, s] = h.gather(1, sel[:, None])[:, 0]
+    keys = torch.where(active.any(dim=1, keepdim=True), keys, 0)
+    return slot_halves(keys)
+
+
+def sort_and_count(h: torch.Tensor, valid: torch.Tensor) -> dict:
+    """Group duplicate k-mer hashes per row (ops/minhash.py:40).
+
+    Sorted by (invalid, hash as unsigned 64-bit, position), like the JAX
+    3-key sort.  Returns [B, n] tensors: ``h`` (sorted hashes), ``first``
+    (first valid element of a run), ``count`` (run length, meaningful at
+    ``first``) and ``tiebreak`` (original position, int32)."""
+    B, n = h.shape
+    # signed order of (h ^ sign bit) == unsigned order of h
+    o1 = torch.sort(h ^ _SIGN, dim=1, stable=True).indices
+    inval = (~valid).gather(1, o1).to(torch.uint8)
+    o2 = torch.sort(inval, dim=1, stable=True).indices
+    order = o1.gather(1, o2)
+    s_h = h.gather(1, order)
+    s_valid = valid.gather(1, order)
+    prev_same = torch.zeros_like(s_valid)
+    prev_same[:, 1:] = s_h[:, 1:] == s_h[:, :-1]
+    first = s_valid & ~prev_same
+    # run length = distance to the next run start (or the valid count)
+    pos = torch.arange(n, device=h.device).expand(B, n)
+    n_valid = s_valid.sum(dim=1, keepdim=True)
+    nxt = torch.where(first, pos, n)
+    nxt = torch.cat([nxt[:, 1:], torch.full((B, 1), n, device=h.device,
+                                            dtype=nxt.dtype)], dim=1)
+    nxt = torch.flip(torch.cummin(torch.flip(nxt, [1]), dim=1).values, [1])
+    count = (torch.minimum(nxt, n_valid) - pos).to(I32)
+    return {"h": s_h, "first": first, "count": count,
+            "tiebreak": order.to(I32)}
+
+
+def dup_rows(h: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-row flag: does a low-32-bit hash half repeat among valid
+    positions (ops/minhash.py:78)?  One-sided: a repeated k-mer is never
+    missed; a low-half collision only routes the row to the weighted
+    kernel, which is exact for it too."""
+    B, n = h.shape
+    pos = torch.arange(n, device=h.device, dtype=I64).expand(B, n)
+    k_lo = torch.where(valid, h & 0xFFFFFFFF, pos)
+    s = torch.sort(k_lo, dim=1).values
+    return (s[:, 1:] == s[:, :-1]).any(dim=1)
+
+
+def minhash_weighted_rows(h: torch.Tensor, valid: torch.Tensor,
+                          num_hashes: int, reduce_fn) -> torch.Tensor:
+    """Exact tf-weighted sketch of rows with repeated k-mers: dedup by
+    ``sort_and_count``, weight = occurrence count at each run's first
+    element, first-occurrence position as the tiebreak (the reference's
+    insertion-ordered map), reduced by ``reduce_fn`` (the weighted kernel
+    wrapper or its plain version)."""
+    g = sort_and_count(h, valid)
+    w = torch.where(g["first"], g["count"], 0)
+    active = g["first"] & (w > 0)
+    return reduce_fn(g["h"], w, active, g["tiebreak"], num_hashes)

@@ -1,0 +1,65 @@
+"""Wrapper of the CUDA pair-scorer kernel (``csrc/scorer.cu``), which
+replaces ``score_pairs_pallas`` (mhap_tpu/ops/scorer_pallas.py:471).
+
+The kernel reads the store's [N, S] columns directly by the ``qi``/``ci``
+row indices.  For CPU tensors the wrapper gathers the rows and runs the
+plain version ``ops/scorer.score_pairs_ref``; for CUDA tensors it
+launches the kernel or raises.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .scorer import N_COLS, score_pairs_ref
+
+
+def score_pairs(q_cols, c_cols, qi: torch.Tensor, ci: torch.Tensor,
+                max_shift: float) -> torch.Tensor:
+    """Score pairs (q row qi[t], c row ci[t]).
+
+    q_cols, c_cols: (ordered_h [N, S], ordered_p [N, S], ordered_m [N],
+    num_kmers [N]) int32 store columns.  Returns int32 [T, 16]
+    (``ops/scorer.COLS``)."""
+    qoh, qop, qom, qnk = q_cols
+    coh, cop, com, cnk = c_cols
+    dev = qoh.device
+    if dev.type == "cpu":
+        qi, ci = qi.long(), ci.long()
+        return score_pairs_ref(qoh[qi], qop[qi], qom[qi], qnk[qi],
+                               coh[ci], cop[ci], com[ci], cnk[ci],
+                               max_shift)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    S = qoh.shape[1]
+    for name, t, shape in (("q_oh", qoh, (qoh.shape[0], S)),
+                           ("q_op", qop, (qoh.shape[0], S)),
+                           ("q_om", qom, (qoh.shape[0],)),
+                           ("q_nk", qnk, (qoh.shape[0],)),
+                           ("c_oh", coh, (coh.shape[0], S)),
+                           ("c_op", cop, (coh.shape[0], S)),
+                           ("c_om", com, (coh.shape[0],)),
+                           ("c_nk", cnk, (coh.shape[0],))):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"{name}: want contiguous int32 {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
+    qi = qi.to(device=dev, dtype=torch.int32).contiguous()
+    ci = ci.to(device=dev, dtype=torch.int32).contiguous()
+    T = qi.shape[0]
+    out = torch.empty((T, N_COLS), dtype=torch.int32, device=dev)
+    if T == 0:
+        return out
+    err = _build.kernels().mhap_score_pairs(
+        qoh.data_ptr(), qop.data_ptr(), qom.data_ptr(), qnk.data_ptr(),
+        coh.data_ptr(), cop.data_ptr(), com.data_ptr(), cnk.data_ptr(),
+        qi.data_ptr(), ci.data_ptr(), T, S, float(max_shift),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "score_pairs")
+    score_pairs.launches += 1
+    return out
+
+
+score_pairs.launches = 0

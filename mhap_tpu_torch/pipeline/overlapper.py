@@ -1,0 +1,391 @@
+"""End-to-end self/query overlapper on PyTorch (counterpart of
+mhap_tpu/pipeline/overlapper.py, ``TpuOverlapper``).
+
+  reads -> upper-cased ASCII rows, sorted by length and cut into chunks of
+    ROWS rows, each as wide as its longest read (one host->device copy per
+    chunk; both strands as bytes, the reverse complement made on the host)
+    -> murmur3_128 16-mer hashes (ops/murmur3.py)
+    -> weighted-MinHash min-reduce: rows without a repeated k-mer through
+       kernel 1 (min_reduce_w1), rows with one through sort_and_count and
+       kernel 2 (weighted_min_reduce) at their exact counts
+    -> murmur3_32 12-mers + bottom-k sort (ops/bottomk.py)
+  -> SketchStore: columns stay on the device
+  -> exact sorted-postings vote (index/postings.py) + suppression rules
+  -> kernel 3 (score_pairs) on every candidate pair, gathering its rows
+     from the store by index
+  -> host float64 identity per distinct (inter, k) + M4 lines.
+
+The emitted line set equals ``TpuOverlapper``'s.  Not in this port yet:
+the k-mer filter path and reads of LONG_READ_THRESHOLD bases or more
+(both raise NotImplementedError).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from mhap_tpu.oracle import scorer as _oscorer
+
+from ..device import resolve_device
+from ..index import postings as _postings
+from ..ops import bottomk as _bottomk
+from ..ops import minhash as _minhash
+from ..ops import murmur3 as _murmur3
+from ..ops.minhash_kernels import min_reduce_w1, weighted_min_reduce
+from ..ops.scorer import COLS as SCORE_COLS
+from ..ops.scorer_kernels import score_pairs as _score_pairs_kernel
+
+DEFAULTS = dict(
+    kmer_size=16,
+    num_hashes=512,
+    num_min_matches=3,
+    threshold=0.78,
+    ordered_kmer_size=12,
+    ordered_sketch_size=1536,
+    max_shift=0.2,
+    min_store_length=0,
+    min_olap_length=116,
+    repeat_weight=0.9,
+)
+
+_RC_TABLE = np.arange(256, dtype=np.uint8)
+for _a, _b in [("A", "T"), ("C", "G"), ("M", "K"), ("R", "Y"), ("W", "W"),
+               ("S", "S"), ("V", "B"), ("H", "D"), ("N", "N")]:
+    _RC_TABLE[ord(_a)] = ord(_b)
+    _RC_TABLE[ord(_b)] = ord(_a)
+
+
+def _rc_codes(codes: np.ndarray) -> np.ndarray:
+    """Reverse complement of ASCII codes (utils/Utils.java rc(), IUPAC)."""
+    return _RC_TABLE[codes[::-1]]
+
+
+class SketchStore:
+    """Dense sketch columns for a set of oriented reads
+    (impl/SequenceSketch.java's bundle, as columns).
+
+    Host numpy: header_id [N] int64, is_fwd [N] bool, length [N] int32,
+    headers.  Device tensors: minhash [N, H], ordered_h/ordered_p [N, S],
+    ordered_m [N] (valid entries) and num_kmers [N], all int32."""
+
+    def __init__(self, header_id, is_fwd, length, minhash, ordered_h,
+                 ordered_p, ordered_m, num_kmers, headers=None):
+        self.header_id = np.asarray(header_id, dtype=np.int64)
+        self.is_fwd = np.asarray(is_fwd, dtype=bool)
+        self.length = np.asarray(length, dtype=np.int32)
+        self.headers = (list(headers) if headers is not None
+                        else [None] * len(self.header_id))
+        self.minhash = minhash
+        self.ordered_h = ordered_h
+        self.ordered_p = ordered_p
+        self.ordered_m = ordered_m
+        self.num_kmers = num_kmers
+
+    def __len__(self):
+        return len(self.header_id)
+
+    @property
+    def n_real(self) -> int:
+        return int(np.count_nonzero(self.header_id))
+
+    def display(self, i: int) -> str:
+        h = self.headers[i]
+        return h if h is not None else str(int(self.header_id[i]))
+
+    def host(self, name: str) -> np.ndarray:
+        return getattr(self, name).cpu().numpy()
+
+    def scorer_cols(self):
+        return (self.ordered_h, self.ordered_p, self.ordered_m,
+                self.num_kmers)
+
+
+class TorchOverlapper:
+    """Single-GPU overlapper; ``device="cpu"`` runs the kernels' plain
+    versions (tests)."""
+
+    ROWS = 1024                  # rows per sketch chunk
+    LONG_READ_THRESHOLD = 1 << 17
+    SCORE_CHUNK = 1 << 20        # pairs per scorer launch
+    NATIVE_FORMAT_MIN = 65536    # batches this large format in C
+
+    def __init__(self, cfg=None, device="cuda", kmer_filter=None):
+        if kmer_filter is not None:
+            raise NotImplementedError(
+                "the k-mer filter path is not ported yet")
+        self.cfg = dict(DEFAULTS)
+        if cfg:
+            self.cfg.update(cfg)
+        self.device = resolve_device(device)
+        self.slow_pair_count = 0  # lanes the scorer escalated: always 0
+        self.stats = dict(matches_processed=0, sequences_searched=0,
+                          elements_processed=0, sequences_hit=0,
+                          sequences_fully_compared=0,
+                          minhash_search_time=0.0, sort_merge_time=0.0)
+
+    # ---------------- sketching ----------------
+
+    def _sketch_chunk(self, codes: np.ndarray, lens: np.ndarray):
+        """[R, W] uint8 rows -> (minhash, ordered_h, ordered_p, ordered_m)
+        device tensors (_sketch_core, overlapper.py:247)."""
+        cfg = self.cfg
+        k1, k2 = cfg["kmer_size"], cfg["ordered_kmer_size"]
+        H, S = cfg["num_hashes"], cfg["ordered_sketch_size"]
+        dev = self.device
+        seq = torch.from_numpy(codes).to(dev)
+        ln = torch.from_numpy(lens).to(dev).to(torch.int64)[:, None]
+        R, W = codes.shape
+        valid1 = torch.arange(W - k1 + 1, device=dev)[None, :] < ln - k1 + 1
+        h = _murmur3.kmer_hashes_128(seq, k1)
+        # rows with a repeated k-mer need the weighted kernel; the flags
+        # come to the host here, synchronously
+        dup = _minhash.dup_rows(h, valid1).cpu().numpy()
+        if not dup.any():
+            mh = min_reduce_w1(h, valid1, H)
+        else:
+            mh = torch.empty((R, H), dtype=torch.int32, device=dev)
+            plain = torch.from_numpy(np.nonzero(~dup)[0]).to(dev)
+            rep = torch.from_numpy(np.nonzero(dup)[0]).to(dev)
+            if plain.numel():
+                mh[plain] = min_reduce_w1(h[plain], valid1[plain], H)
+            mh[rep] = _minhash.minhash_weighted_rows(
+                h[rep], valid1[rep], H, weighted_min_reduce)
+        valid2 = torch.arange(W - k2 + 1, device=dev)[None, :] < ln - k2 + 1
+        h32 = _murmur3.kmer_hashes_32(seq, k2)
+        oh, op, om = _bottomk.bottom_sketch(h32, valid2, S)
+        return mh, oh, op, om
+
+    def sketch_reads(self, reads: list[str], headers=None, offset: int = 0,
+                     do_rc: bool = True) -> SketchStore:
+        """Sketch fwd (+rc) of every read with the reference's skip rules
+        (SequenceSketchStreamer.java:123-177): reads shorter than
+        min_olap_length are dropped and ids keep counting; a zero-ngram
+        forward strand drops the read, a zero-ngram rc strand drops the
+        rc entry (overlapper.py:897-921)."""
+        cfg = self.cfg
+        k1, k2 = cfg["kmer_size"], cfg["ordered_kmer_size"]
+        H, S = cfg["num_hashes"], cfg["ordered_sketch_size"]
+        entries = []  # (header_id, is_fwd, header, codes)
+        for i, r in enumerate(reads):
+            if len(r) < cfg["min_olap_length"]:
+                continue
+            if len(r) >= self.LONG_READ_THRESHOLD:
+                raise NotImplementedError(
+                    f"reads of {self.LONG_READ_THRESHOLD} bases or more "
+                    "(windowed sketcher) are not ported yet")
+            hid = i + 1 + offset
+            hdr = headers[i] if headers is not None else None
+            codes = np.frombuffer(r.upper().encode("ascii"), dtype=np.uint8)
+            entries.append((hid, True, hdr, codes))
+            if do_rc:
+                entries.append((hid, False, hdr, _rc_codes(codes)))
+        N = len(entries)
+        dev = self.device
+        lens = np.asarray([len(e[3]) for e in entries], np.int64)
+        mh = torch.empty((N, H), dtype=torch.int32, device=dev)
+        oh = torch.empty((N, S), dtype=torch.int32, device=dev)
+        op = torch.empty((N, S), dtype=torch.int32, device=dev)
+        om = torch.empty((N,), dtype=torch.int32, device=dev)
+        # length bucketing: sorted by length, each chunk trimmed to its
+        # longest read (every [B, n] op scales with the width)
+        order = np.argsort(lens, kind="stable")
+        for s in range(0, N, self.ROWS):
+            idx = order[s:s + self.ROWS]
+            W = int(lens[idx].max())
+            W = max(-(-W // 64) * 64, k1, k2)
+            codes = np.zeros((len(idx), W), np.uint8)
+            for r, j in enumerate(idx):
+                codes[r, :lens[j]] = entries[j][3]
+            out = self._sketch_chunk(codes, lens[idx].astype(np.int32))
+            rows = torch.from_numpy(idx).to(dev)
+            for col, val in zip((mh, oh, op, om), out):
+                col[rows] = val
+        # zero-ngram skip rules
+        mh_valid = lens - k1 + 1 > 0
+        keep = np.ones(N, bool)
+        for j, (hid, fwd, _hdr, _c) in enumerate(entries):
+            if not mh_valid[j]:
+                keep[j] = False
+                if fwd and do_rc and j + 1 < N and entries[j + 1][0] == hid:
+                    keep[j + 1] = False
+        sel = np.nonzero(keep)[0]
+        sel_t = torch.from_numpy(sel).to(dev)
+        nk = np.maximum(lens[sel] - k2 + 1, 0).astype(np.int32)
+        return SketchStore(
+            header_id=np.asarray([entries[j][0] for j in sel], np.int64),
+            is_fwd=np.asarray([entries[j][1] for j in sel], bool),
+            length=lens[sel].astype(np.int32),
+            headers=[entries[j][2] for j in sel],
+            minhash=mh[sel_t].contiguous(),
+            ordered_h=oh[sel_t].contiguous(),
+            ordered_p=op[sel_t].contiguous(),
+            ordered_m=om[sel_t].contiguous(),
+            num_kmers=torch.from_numpy(nk).to(dev))
+
+    # ---------------- vote ----------------
+
+    def _build_index(self, store: SketchStore):
+        """The store's sorted postings, the index for _find_matches."""
+        return _postings.build_postings(store.minhash)
+
+    # ---------------- scoring ----------------
+
+    def _score_dispatch(self, qs: SketchStore, cs: SketchStore,
+                        qi: np.ndarray, ci: np.ndarray) -> dict:
+        """Kernel 3 over every pair, chunked; columns as host arrays."""
+        dev = self.device
+        parts = []
+        for s in range(0, len(qi), self.SCORE_CHUNK):
+            q = torch.from_numpy(qi[s:s + self.SCORE_CHUNK]).to(dev)
+            c = torch.from_numpy(ci[s:s + self.SCORE_CHUNK]).to(dev)
+            parts.append(_score_pairs_kernel(
+                qs.scorer_cols(), cs.scorer_cols(), q, c,
+                float(self.cfg["max_shift"])).cpu().numpy())
+        out = np.concatenate(parts)
+        return {name: out[:, j] for j, name in enumerate(SCORE_COLS)}
+
+    def _identity_scores(self, out: dict):
+        """Integer scorer outputs -> (score, raw, edges) host arrays.
+
+        The mash identity runs as scalar math.exp/log once per DISTINCT
+        (inter, k): bit-identical to the oracle/Java double path (numpy's
+        SIMD exp/log may differ by 1 ulp) (overlapper.py:1645)."""
+        k2 = self.cfg["ordered_kmer_size"]
+        base = self.cfg["ordered_sketch_size"] + 1  # k <= sketch size
+        ok = out["ok"].astype(bool)
+        kk = np.maximum(out["k"], 1)
+        pair_key = out["inter"].astype(np.int64) * base + kk
+        uniq, inv = np.unique(pair_key, return_inverse=True)
+        sc_u = np.array([_oscorer.jaccard_to_identity(
+            float(u // base) / float(u % base), k2) for u in uniq])
+        score = np.where(ok, sc_u[inv], 0.0)
+        raw = np.where(ok, out["valid_cnt"].astype(np.float64), 0.0)
+        edges = np.zeros((len(score), 4), np.int32)
+        for n, name in enumerate(("a1", "a2", "b1", "b2")):
+            edges[:, n] = np.where(ok, out[name], 0)
+        return score, raw, edges
+
+    def score_pairs(self, qs: SketchStore, cs: SketchStore,
+                    qi: np.ndarray, ci: np.ndarray):
+        """Stage-2 scores of (qs[qi[t]], cs[ci[t]]).  Returns (score
+        float64 [T], raw float64 [T], edges int32 [T, 4])."""
+        if len(qi) == 0:
+            return (np.zeros(0, np.float64), np.zeros(0, np.float64),
+                    np.zeros((0, 4), np.int32))
+        out = self._score_dispatch(qs, cs, qi.astype(np.int32),
+                                   ci.astype(np.int32))
+        self.slow_pair_count += int(out["escal"].sum())
+        return self._identity_scores(out)
+
+    # ---------------- match driving ----------------
+
+    def _format(self, qs: SketchStore, cs: SketchStore, qi, ci, score, raw,
+                edges) -> list[str]:
+        """MatchResult coordinate flips + M4 formatting (MatchResult.java;
+        overlapper.py:1839)."""
+        T = len(qi)
+        if T == 0:
+            return []
+        qi = np.asarray(qi, np.int64)
+        ci = np.asarray(ci, np.int64)
+        qlen = qs.length[qi].astype(np.int64)
+        clen = cs.length[ci].astype(np.int64)
+        qf = qs.is_fwd[qi]
+        cf = cs.is_fwd[ci]
+        a1, a2 = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+        b1, b2 = edges[:, 2].astype(np.int64), edges[:, 3].astype(np.int64)
+        fa1 = np.where(qf, a1, qlen - a2 - 1)
+        fa2 = np.where(qf, a2, qlen - a1 - 1)
+        fb1 = np.where(cf, b1, clen - b2 - 1)
+        fb2 = np.where(cf, b2, clen - b1 - 1)
+        err = 1.0 - np.minimum(np.asarray(score, np.float64), 1.0)
+        raw = np.asarray(raw, np.float64)
+        qrc = np.where(qf, 0, 1)
+        crc = np.where(cf, 0, 1)
+        if (T >= self.NATIVE_FORMAT_MIN
+                and not any(qs.headers) and not any(cs.headers)):
+            from mhap_tpu.utils.native import format_m4
+
+            return format_m4(qs.header_id[qi], cs.header_id[ci], err,
+                             raw, qrc, fa1, fa2, qlen, crc, fb1, fb2,
+                             clen)
+        disp_q = [qs.display(int(q)) for q in qi]
+        disp_c = [cs.display(int(c)) for c in ci]
+        return ["%s %s %.6f %.6f %d %d %d %d %d %d %d %d" % t
+                for t in zip(disp_q, disp_c, err.tolist(), raw.tolist(),
+                             qrc.tolist(), fa1.tolist(), fa2.tolist(),
+                             qlen.tolist(), crc.tolist(), fb1.tolist(),
+                             fb2.tolist(), clen.tolist())]
+
+    def _candidates(self, store: SketchStore, index, queries: SketchStore,
+                    q_sel: np.ndarray, to_self: bool):
+        """Vote + suppression rules (MinHashSearch.java:149-251;
+        overlapper.py:2583-2613): (query row, store row) pairs to score."""
+        cfg = self.cfg
+        self.stats["sequences_searched"] += len(q_sel)
+        t0 = time.perf_counter()
+        q_sel = np.asarray(q_sel, np.int64)
+        qmh = queries.minhash[torch.from_numpy(q_sel).to(self.device)]
+        q_idx, cand, hits_total, distinct = _postings.vote(
+            index, qmh, cfg["num_min_matches"])
+        q_idx, cand = q_idx.cpu().numpy(), cand.cpu().numpy()
+        self.stats["minhash_search_time"] += time.perf_counter() - t0
+        self.stats["elements_processed"] += hits_total
+        self.stats["sequences_hit"] += distinct
+        qg = q_sel[q_idx]
+        keepm = store.header_id[cand] > 0
+        msl = cfg["min_store_length"]
+        q_hid = queries.header_id[qg]
+        c_hid = store.header_id[cand]
+        q_len = queries.length[qg].astype(np.int64)
+        c_len = store.length[cand].astype(np.int64)
+        if to_self:
+            keepm &= c_hid != q_hid
+        keepm &= ~((c_len < msl) & (q_len < msl))
+        if to_self:
+            keepm &= ~((c_hid > q_hid) & (c_len >= msl) & (q_len >= msl))
+            keepm &= ~((c_len < msl) & (q_len >= msl))
+        return qg[keepm], cand[keepm]
+
+    def _find_matches(self, store: SketchStore, index, queries: SketchStore,
+                      q_sel: np.ndarray, to_self: bool) -> list[str]:
+        """Candidates, then scoring and formatting of the accepted pairs."""
+        if len(q_sel) == 0:
+            return []
+        qg, cand = self._candidates(store, index, queries, q_sel, to_self)
+        if len(qg) == 0:
+            return []
+        t0 = time.perf_counter()
+        self.stats["sequences_fully_compared"] += len(qg)
+        score, raw, edges = self.score_pairs(queries, store, qg, cand)
+        acc = score >= self.cfg["threshold"]
+        self.stats["matches_processed"] += int(acc.sum())
+        lines = self._format(queries, store, qg[acc], cand[acc],
+                             score[acc], raw[acc], edges[acc])
+        self.stats["sort_merge_time"] += time.perf_counter() - t0
+        return lines
+
+    def overlap_self(self, reads: list[str], headers=None) -> list[str]:
+        """Self-overlap run; returns the sorted list of M4 lines."""
+        store = self.sketch_reads(reads, headers)
+        index = self._build_index(store)
+        q_sel = np.nonzero(store.is_fwd)[0]
+        return sorted(self._find_matches(store, index, store, q_sel, True))
+
+    def overlap_query(self, box_reads: list[str], query_reads: list[str],
+                      no_self: bool = False) -> list[str]:
+        """Box-vs-query run (MhapMain usage 1 with -q)."""
+        box = self.sketch_reads(box_reads)
+        index = self._build_index(box)
+        lines = []
+        if not no_self:
+            q_sel = np.nonzero(box.is_fwd)[0]
+            lines += self._find_matches(box, index, box, q_sel, True)
+        queries = self.sketch_reads(query_reads, offset=box.n_real // 2,
+                                    do_rc=False)
+        lines += self._find_matches(box, index, queries,
+                                    np.arange(len(queries)), False)
+        return sorted(lines)
