@@ -3,53 +3,99 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from mhap_tpu_torch/csrc, then:
+Builds the CUDA kernels from mhap_tpu_torch/csrc (one nvcc per source, all
+at once), then:
   1. prints the card (nvidia-smi name and power limit), torch and CUDA
      versions and the kernel build time;
   2. holds each kernel against its plain PyTorch version on the card, at
      the main path's shapes, bit for bit (all outputs are integers), and
-     times both (CUDA events, median of 5); the scorer kernel also against
-     the native C++ scorer (native/scorer_ffi.cc mhap_score_pair), and
-     kernels 1 and 3 once more on adversarial inputs (random masks and an
-     empty row; tiny hash spaces at S = 1536);
+     times both (CUDA events, median of 5; 3 for kernel 2's slow plain
+     version): kernel 1 also on random rows (masks, an empty row); kernel
+     2 also on the filtered2k rows with the largest tf-idf weights;
+     kernel 3 also against the native C++ scorer (native/scorer_ffi.cc
+     mhap_score_pair) and on adversarial pairs; kernel 4 (merge2, no
+     caller on the overlap path, as in JAX) on the ordered sketches of
+     4,096 primary candidate pairs and on 37 adversarial row pairs.  The
+     device filter weights equal the host float64 ones for every (k-mer,
+     count) of filtered2k and for counts up to 10,000;
   3. runs TorchOverlapper.overlap_self on the primary workload
      (bench.make_reads(): 1,024 reads x 2.9 kb): 4,349 lines whose
      line-set sha256 equals the native binary's on the same reads;
   4. a repeat mix (256 reads, 32 with an internal 500 bp duplication, 2
      with an ACGTTGCA x 200 tandem insert): line set equal to native's;
   5. lognormal10k (bench.make_reads_placed(10_000, seed=SEED + 1)):
-     158,246 lines, line set equal to native's.
+     158,246 lines, line set equal to native's;
+  6. filtered2k (bench.bench_config_filtered's reads and tf-idf filter
+     file, read by the port's reader at --supress-noise 0): 286,410 lines,
+     line set equal to the native binary's with -f; the CLI's
+     ``-s reads.fa -f kmers.txt`` prints the same lines;
+  7. an ultra-long mix (seed 4244: 16 reads of 131,072-400,000 bp and
+     1,024 of 2.9 kb from a 1.5 Mb genome): line set equal to native's,
+     and kernel 2's time on the long rows;
+  8. 24 reads of 380,000-403,000 bp (seed 4245, a 2 Mb genome): their 48
+     strands exceed TorchOverlapper.CELLS, so sketch_reads cuts them into
+     a chunk filled to the budget and a rest; line set equal to native's,
+     and the run's peak device memory.
 Every launch counter is set to 0 right before each main-path run of
-phases 3-5 and read right after; a kernel the path never launched fails
-the run.  The last stdout lines are the kernels' JSON line, the card's
-nvidia-smi line and {"ok": true, "device": ...}.  Any failure exits
-non-zero.  Imports nothing of JAX.
+phases 3-8 and read right after; a kernel of a path that did not launch
+there fails the run.  The bound of each kernel is the larger of its bytes
+(each input read once, each output written once) over 3.35 TB/s and its
+integer operations over the card's INT32 rate.  The last stdout lines
+are the kernels' JSON line, the card's nvidia-smi line and {"ok": true,
+"device": ...}.  Any failure exits non-zero.  Imports nothing of JAX or
+of the JAX package.  profile_stages.py builds its filtered2k input with
+filtered2k() and read_filter() from here, so both measure one input.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 EXPECTED_PRIMARY = 4349
 EXPECTED_LOGNORMAL10K = 158246
+EXPECTED_FILTERED2K = 286410
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+INT32_LANES_PER_SM = 64    # Hopper SM (NVIDIA H100 white paper)
+# INT32 operations per xorshift64 stream step of csrc/minhash.cu: three
+# 64-bit shifts and three xors on 32-bit halves (12), the signed 64-bit
+# compare and select of the running minimum (4)
+OPS_PER_STREAM_STEP = 16
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query: str = "name,power.limit") -> str:
+    r = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def int32_ops_per_s() -> float:
+    """SMs x 64 INT32 lanes x the card's maximum SM clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def bound(nbytes: float, nops: float, rate: float) -> dict:
+    """The least ms the card could take for the work, and what sets it."""
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = nops / rate * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -69,6 +115,11 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def max_err(got, want) -> int:
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
 def reset_counters(kern) -> None:
     for f in kern.values():
         f.launches = 0
@@ -80,10 +131,13 @@ def read_counters(kern) -> dict:
 
 def native_scorer():
     """ctypes handle on native/scorer_ffi.cc mhap_score_pair."""
-    import numpy as np
-    from mhap_tpu.utils import native
+    import ctypes
 
-    fn = native._lib().mhap_score_pair
+    import numpy as np
+
+    from mhap_tpu_torch.utils import native
+
+    fn = native.library().mhap_score_pair
     fn.restype = ctypes.c_int
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     fn.argtypes = [i32p, i32p, ctypes.c_int, ctypes.c_int, i32p, i32p,
@@ -142,6 +196,53 @@ def native_check(fn, host_q, host_c, qi, ci, out, jaccard_to_identity):
     return bad
 
 
+def merge_rows(store, idx):
+    """Ordered sketches of store rows ``idx`` as kernel-4 limbs: the hash
+    with its sign bit flipped in limb 0 (unsigned order = the signed order
+    the rows are sorted in), the position in limb 1, pads all ones."""
+    import torch
+
+    idx = idx.long()
+    real = (torch.arange(store.ordered_h.shape[1], device=idx.device)[None]
+            < store.ordered_m[idx][:, None])
+    limb0 = torch.where(real, store.ordered_h[idx] ^ (-(1 << 31)), -1)
+    limb1 = torch.where(real, store.ordered_p[idx], -1)
+    return limb0.to(torch.int32).contiguous(), \
+        limb1.to(torch.int32).contiguous()
+
+
+def adversarial_merge_rows(T: int, S: int, seed: int):
+    """T sorted row pairs at width S: keys equal across a and b (rows
+    0-7), all-pad rows, one-entry rows, and full rows of duplicate keys
+    around the sign bits of both limbs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    hi_vals = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFE,
+                        0xFFFFFFFF], np.uint32)
+    lo_vals = np.array([0, 5, 0x80000000, 0xFFFFFFFF], np.uint32)
+
+    def rows(m):
+        hi = rng.choice(hi_vals, (T, S))
+        lo = rng.choice(lo_vals, (T, S))
+        for t in range(T):
+            o = np.lexsort((lo[t], hi[t]))
+            hi[t], lo[t] = hi[t][o], lo[t][o]
+            hi[t, m[t]:] = 0xFFFFFFFF
+            lo[t, m[t]:] = 0xFFFFFFFF
+        return hi.view(np.int32), lo.view(np.int32)
+
+    m_a = rng.integers(0, S + 1, T)
+    m_b = rng.integers(0, S + 1, T)
+    m_a[8:12], m_b[8:12] = 0, 0            # both rows all pads
+    m_a[12:16], m_b[12:16] = 1, 0          # one entry against pads
+    m_a[16:20], m_b[16:20] = 1, 1          # one entry each
+    m_a[20:24], m_b[20:24] = S, S          # full rows
+    a, b = rows(m_a), rows(m_b)
+    b[0][:8], b[1][:8] = a[0][:8], a[1][:8]  # equal keys across a and b
+    return a, b
+
+
 def repeat_mix(bench):
     """256 primary-style reads: 32 carry an internal 500 bp duplication,
     2 an ACGTTGCA x 200 tandem insert."""
@@ -157,6 +258,143 @@ def repeat_mix(bench):
         r = reads[i]
         reads[i] = r[:1200] + "ACGTTGCA" * 200 + r[1200:]
     return reads
+
+
+def filtered2k(bench, tmpdir: str):
+    """bench.bench_config_filtered's input: 2,048 reads x 2.9 kb from a
+    genome with an implanted repeat family, and its tf-idf filter file
+    (the genome's 4,000 most frequent 16-mers).  Returns (reads, path)."""
+    n_reads = 2048
+    genome_len = int(n_reads * bench.READ_LEN / 25.0)
+    genome = bench.repeat_seeded_genome(genome_len, seed=bench.SEED + 2)
+    reads, _, _ = bench.make_reads_placed(n_reads, seed=bench.SEED + 2,
+                                          lognormal=False, genome=genome,
+                                          genome_len=genome_len)
+    path = os.path.join(tmpdir, "kmers.txt")
+    bench.write_filter_file(genome, 16, path)
+    return reads, path
+
+
+def read_filter(path: str, no_tf: bool = False):
+    """The file as bench_config_filtered reads it: cutoff 1e-5, offset
+    0.9, remove_unique 0, range 3.0, canonical k-mers."""
+    from mhap_tpu_torch.io.fasta import open_text
+    from mhap_tpu_torch.io.filter import FrequencyCounts
+
+    with open_text(path) as f:
+        return FrequencyCounts(f, 1e-5, 0.9, 0, no_tf, 3.0, True)
+
+
+def ultra_long_mix(bench, seed: int = 4244, genome_len: int = 1_500_000,
+                   lens=None):
+    """Seed 4244: 16 reads of 131,072-400,000 bp and 1,024 of 2.9 kb,
+    from a 1.5 Mb random genome through bench._noisy_read (or reads of
+    ``lens`` from another seed and genome length)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    G = genome_len
+    genome = rng.integers(0, 4, G)
+    if lens is None:
+        lens = rng.integers(131_072, 400_001, 16).tolist() \
+            + [bench.READ_LEN] * 1024
+    reads = []
+    for L in lens:
+        span = int(L * 1.15)
+        pos = int(rng.integers(0, G - span))
+        out, _ = bench._noisy_read(rng, genome[pos:pos + span], L)
+        reads.append(bytes(bases[out]).decode("ascii"))
+    return reads
+
+
+def code_rows(seqs, k1: int, dev):
+    """Strings or uint8 arrays -> (16-mer hashes [R, n] int64, valid
+    [R, n]) on ``dev``, rows padded to the longest."""
+    import numpy as np
+    import torch
+
+    from mhap_tpu_torch.ops import murmur3
+
+    arrs = [np.frombuffer(x.encode(), np.uint8) if isinstance(x, str)
+            else x for x in seqs]
+    W = -(-max(map(len, arrs)) // 64) * 64
+    codes = np.zeros((len(arrs), W), np.uint8)
+    ln = np.zeros(len(arrs), np.int64)
+    for i, c in enumerate(arrs):
+        codes[i, :len(c)] = c
+        ln[i] = len(c)
+    h = murmur3.kmer_hashes_128(torch.from_numpy(codes).to(dev), k1)
+    valid = (torch.arange(h.shape[1], device=dev)[None]
+             < torch.from_numpy(ln - k1 + 1).to(dev)[:, None])
+    return h, valid
+
+
+def first_kmers(reads, k1: int, dev):
+    """(hashes, counts) of every distinct 16-mer of each strand of
+    ``reads`` at its first occurrence (sort_and_count runs' first
+    elements), 512 reads per batch."""
+    import numpy as np
+    import torch
+
+    from mhap_tpu_torch.ops import minhash as mh
+    from mhap_tpu_torch.pipeline.overlapper import _rc_codes
+
+    keys, counts = [], []
+    for s in range(0, len(reads), 512):
+        rows = []
+        for r in reads[s:s + 512]:
+            c = np.frombuffer(r.encode(), np.uint8)
+            rows += [c, _rc_codes(c)]
+        g = mh.sort_and_count(*code_rows(rows, k1, dev))
+        keys.append(g["h"][g["first"]])
+        counts.append(g["count"][g["first"]])
+    return torch.cat(keys), torch.cat(counts)
+
+
+def check_filtered(reads_f, filter_path, fc, k1: int, H: int, dev):
+    """filtered2k on the card: device filter weights against the host's
+    float64 ones (tf-idf, legacy and no-tf modes, every (k-mer, count) of
+    the reads, and counts 1..10,000 for 2,048 keys), and kernel 2 against
+    its plain version on the 4 rows with the largest tf-idf weights.
+    Returns (weights that differ, kernel 2's max |err|)."""
+    import torch
+
+    from mhap_tpu_torch.ops import minhash as mh
+    from mhap_tpu_torch.ops.minhash_kernels import weighted_min_reduce
+    from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
+
+    vf = VectorFrequencyFilter(fc, dev)
+    vf_host = VectorFrequencyFilter(fc, "cpu")
+    keys, counts = first_kmers(reads_f, k1, dev)
+    bad_w = 0
+    for rw in (0.9, -1.0):
+        bad_w += int((vf.weights(keys, counts, rw).cpu()
+                      != vf_host.weights(keys.cpu(), counts.cpu(), rw)).sum())
+    fc_notf = read_filter(filter_path, no_tf=True)
+    bad_w += int((VectorFrequencyFilter(fc_notf, dev).weights(
+        keys, counts, 0.9).cpu() != VectorFrequencyFilter(
+        fc_notf, "cpu").weights(keys.cpu(), counts.cpu(), 0.9)).sum())
+    syn_keys = torch.cat([vf.keys[:1024], keys[:1024]])
+    sk = syn_keys[:, None].expand(-1, 10_000).reshape(-1)
+    sc = torch.arange(1, 10_001, device=dev)[None, :].expand(
+        len(syn_keys), -1).reshape(-1)
+    w_dev = vf.weights(sk, sc, 0.9)
+    bad_w += int((w_dev.cpu() != vf_host.weights(sk.cpu(), sc.cpu(),
+                                                 0.9)).sum())
+    log(f"[2] filter weights: {len(fc)} file k-mers, {len(keys)} "
+        f"(k-mer, count) of filtered2k in modes tf-idf / legacy / no-tf, "
+        f"{len(sk)} synthetic (counts 1..10,000, max weight "
+        f"{int(w_dev.max())}): {bad_w} device weights differ from host")
+    gf = mh.sort_and_count(*code_rows(reads_f[:512], k1, dev))
+    wf = torch.where(gf["first"], vf.weights(gf["h"], gf["count"], 0.9), 0)
+    top = torch.topk(wf.max(dim=1).values, 4).indices
+    fargs = (gf["h"][top], wf[top], (wf[top] > 0), gf["tiebreak"][top])
+    err = max_err([weighted_min_reduce(*fargs, H)],
+                  [mh.weighted_min_reduce_ref(*fargs, H)])
+    log(f"[2] kernel 2 on the 4 filtered2k rows with the largest tf-idf "
+        f"weights (max {int(wf.max())}): max|err| {err}")
+    return bad_w, err
 
 
 def run_main_path(ov, reads, kern, n_timed: int = 3):
@@ -199,24 +437,32 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import bench
-    from mhap_tpu.oracle.scorer import jaccard_to_identity
     from mhap_tpu_torch.ops import _build
+    from mhap_tpu_torch.ops import merge as mg
     from mhap_tpu_torch.ops import minhash as mh
     from mhap_tpu_torch.ops import murmur3
+    from mhap_tpu_torch.ops.merge_kernels import merge2
     from mhap_tpu_torch.ops.minhash_kernels import (min_reduce_w1,
                                                     weighted_min_reduce)
     from mhap_tpu_torch.ops.scorer import COLS, score_pairs_ref
     from mhap_tpu_torch.ops.scorer_kernels import score_pairs
-    from mhap_tpu_torch.pipeline.overlapper import TorchOverlapper
+    from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
+    from mhap_tpu_torch.pipeline.overlapper import (TorchOverlapper,
+                                                    _rc_codes,
+                                                    jaccard_to_identity)
 
     dev = torch.device("cuda")
     kern = {"min_reduce_w1": min_reduce_w1,
             "weighted_min_reduce": weighted_min_reduce,
-            "score_pairs": score_pairs}
+            "score_pairs": score_pairs, "merge2": merge2}
+    path_kernels = ("min_reduce_w1", "weighted_min_reduce", "score_pairs")
+    tmp = tempfile.TemporaryDirectory()
     # ---- phase 1: card, versions, build ----
     smi = nvidia_smi()
+    rate = int32_ops_per_s()
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; INT32 "
+        f"rate {rate / 1e12:.3f} T op/s")
     t0 = time.perf_counter()
     _build.kernels()
     log(f"[1] kernels built+loaded in {time.perf_counter() - t0:.1f} s "
@@ -225,15 +471,13 @@ def main() -> int:
     # ---- phase 2: kernels vs plain at the main path's shapes ----
     results = {}
     reads = bench.make_reads()
-    k1, H = 16, 512
+    k1, H, S = 16, 512, 1536
     codes = np.frombuffer("".join(reads[:512]).encode(), np.uint8)
     seq = torch.from_numpy(codes.reshape(512, -1).copy()).to(dev)
     h = murmur3.kmer_hashes_128(seq, k1)
     act = torch.ones_like(h, dtype=torch.bool)
-    got = min_reduce_w1(h, act, H)
-    want = mh.min_reduce_w1_ref(h, act, H)
-    torch.cuda.synchronize()
-    err1 = int((got.long() - want.long()).abs().max())
+    err1 = max_err([min_reduce_w1(h, act, H)],
+                   [mh.min_reduce_w1_ref(h, act, H)])
     # random masks, one empty row, one row past a register tile
     g1 = torch.Generator(device=dev).manual_seed(11)
     hr = torch.randint(-2**63, 2**63 - 1, (6, 9000), device=dev,
@@ -241,17 +485,19 @@ def main() -> int:
     ar = torch.rand((6, 9000), device=dev, generator=g1) < 0.7
     ar[2] = False
     ar[3, 5000:] = False
-    errx = int((min_reduce_w1(hr, ar, H).long()
-                - mh.min_reduce_w1_ref(hr, ar, H).long()).abs().max())
+    errx = max_err([min_reduce_w1(hr, ar, H)],
+                   [mh.min_reduce_w1_ref(hr, ar, H)])
     log(f"[2] kernel 1 on random rows [6, 9000] (empty row, masks): "
         f"max|err| {errx}")
-    err1 = max(err1, errx)
+    B, n = h.shape
     results["min_reduce_w1"] = dict(
-        err=err1, ms=time_ms(lambda: min_reduce_w1(h, act, H)),
-        plain_ms=time_ms(lambda: mh.min_reduce_w1_ref(h, act, H)))
-    log(f"[2] kernel 1 min_reduce_w1 {tuple(h.shape)} H={H}: max|err| "
-        f"{err1}, {results['min_reduce_w1']['ms']:.3f} ms vs plain "
-        f"{results['min_reduce_w1']['plain_ms']:.3f} ms")
+        err=max(err1, errx), ms=time_ms(lambda: min_reduce_w1(h, act, H)),
+        plain_ms=time_ms(lambda: mh.min_reduce_w1_ref(h, act, H)),
+        library_ms=None, **bound(B * n * 9 + B * H * 4,
+                                 int(act.sum()) * H * OPS_PER_STREAM_STEP,
+                                 rate))
+    log(f"[2] kernel 1 min_reduce_w1 {tuple(h.shape)} H={H}: "
+        f"{results['min_reduce_w1']}")
 
     # weights 1..4 (a 100 bp segment repeated up to 4 times) + one tandem
     # row with weights around 200
@@ -260,33 +506,31 @@ def main() -> int:
         rep = 1 + i % 4
         rows.append(r[:600] + r[600:700] * rep + r[700:2000])
     rows.append(reads[600][:300] + "ACGTTGCA" * 200 + reads[600][300:600])
-    W = max(len(r) for r in rows)
-    c2 = np.zeros((len(rows), W), np.uint8)
-    ln = np.zeros(len(rows), np.int64)
-    for i, r in enumerate(rows):
-        c2[i, :len(r)] = np.frombuffer(r.encode(), np.uint8)
-        ln[i] = len(r)
-    seq2 = torch.from_numpy(c2).to(dev)
-    h2 = murmur3.kmer_hashes_128(seq2, k1)
-    v2 = (torch.arange(h2.shape[1], device=dev)[None, :]
-          < torch.from_numpy(ln - k1 + 1).to(dev)[:, None])
+    h2, v2 = code_rows(rows, k1, dev)
     g = mh.sort_and_count(h2, v2)
     w2 = torch.where(g["first"], g["count"], 0)
     a2 = g["first"] & (w2 > 0)
-    log(f"[2] kernel 2 rows: {tuple(h2.shape)}, max weight {int(w2.max())}")
-    got = weighted_min_reduce(g["h"], w2, a2, g["tiebreak"], H)
-    want = mh.weighted_min_reduce_ref(g["h"], w2, a2, g["tiebreak"], H)
-    torch.cuda.synchronize()
-    err2 = int((got.long() - want.long()).abs().max())
+    err2 = max_err([weighted_min_reduce(g["h"], w2, a2, g["tiebreak"], H)],
+                   [mh.weighted_min_reduce_ref(g["h"], w2, a2,
+                                               g["tiebreak"], H)])
+    B, n = h2.shape
     results["weighted_min_reduce"] = dict(
         err=err2,
         ms=time_ms(lambda: weighted_min_reduce(g["h"], w2, a2,
                                                g["tiebreak"], H)),
         plain_ms=time_ms(lambda: mh.weighted_min_reduce_ref(
-            g["h"], w2, a2, g["tiebreak"], H)))
-    log(f"[2] kernel 2 weighted_min_reduce: max|err| {err2}, "
-        f"{results['weighted_min_reduce']['ms']:.3f} ms vs plain "
-        f"{results['weighted_min_reduce']['plain_ms']:.3f} ms")
+            g["h"], w2, a2, g["tiebreak"], H), reps=3),
+        library_ms=None, **bound(B * n * 17 + B * H * 4,
+                                 int(w2[a2].sum()) * H * OPS_PER_STREAM_STEP,
+                                 rate))
+    log(f"[2] kernel 2 weighted_min_reduce {tuple(h2.shape)}, max weight "
+        f"{int(w2.max())}: {results['weighted_min_reduce']}")
+
+    # filtered2k: kernel 2 at tf-idf weights, device vs host weights
+    reads_f, filter_path = filtered2k(bench, tmp.name)
+    fc = read_filter(filter_path)
+    bad_w, err2f = check_filtered(reads_f, filter_path, fc, k1, H, dev)
+    results["weighted_min_reduce"]["err"] = max(err2, err2f)
 
     ov = TorchOverlapper(device="cuda")
     store = ov.sketch_reads(reads)
@@ -300,11 +544,22 @@ def main() -> int:
     ql, cl = qi.long(), ci.long()
     gathered = [c[ql] for c in cols] + [c[cl] for c in cols]
     want = score_pairs_ref(*gathered, 0.2)
-    torch.cuda.synchronize()
-    err3 = int((got.long() - want.long()).abs().max())
+    err3 = max_err([got], [want])
+    T = len(qi)
+    m_sum = int(store.ordered_m[ql].sum() + store.ordered_m[cl].sum())
+    # bytes: the kernel gathers rows from the store by index, so each
+    # distinct row is read once: its real (hash, pos) entries and two
+    # counts; the two index vectors and 16 output columns a pair.
+    # Operations: two merge passes, ~8 INT32 ops a cursor step
+    distinct = torch.unique(torch.cat([ql, cl]))
+    row_bytes = int(store.ordered_m[distinct].sum()) * 8 + len(distinct) * 8
     results["score_pairs"] = dict(
         err=err3, ms=time_ms(lambda: score_pairs(cols, cols, qi, ci, 0.2)),
-        plain_ms=time_ms(lambda: score_pairs_ref(*gathered, 0.2)))
+        plain_ms=time_ms(lambda: score_pairs_ref(*gathered, 0.2)),
+        library_ms=None, **bound(row_bytes + T * (2 * 4 + 16 * 4),
+                                 2 * m_sum * 8, rate))
+    log(f"[2] kernel 3 bound: {len(distinct)} distinct store rows in "
+        f"{T} pairs, {row_bytes} bytes of rows, {2 * m_sum} cursor steps")
     # the native C++ automaton on the same pairs
     fn = native_scorer()
     host = [store.host(n) for n in ("ordered_h", "ordered_p", "ordered_m",
@@ -312,20 +567,17 @@ def main() -> int:
     g3 = got.cpu().numpy()
     nat_bad = native_check(fn, host, host, qg[:4096], cand[:4096], g3,
                            jaccard_to_identity)
-    log(f"[2] kernel 3 score_pairs {len(qi)} pairs: max|err| {err3} vs "
-        f"plain, {nat_bad} lanes differ from native, ok lanes "
+    log(f"[2] kernel 3 score_pairs {T} pairs: max|err| {err3} vs plain, "
+        f"{nat_bad} lanes differ from native, ok lanes "
         f"{int(g3[:, 0].sum())}, escal {int(g3[:, COLS.index('escal')].sum())}"
-        f"; {results['score_pairs']['ms']:.3f} ms vs plain "
-        f"{results['score_pairs']['plain_ms']:.3f} ms")
+        f"; {results['score_pairs']}")
     # adversarial pairs at S = 1536: deep duplicate runs
-    adv = adversarial_pairs(256, 1536, seed=bench.SEED)
+    adv = adversarial_pairs(256, S, seed=bench.SEED)
     qa = [torch.from_numpy(x).to(dev) for x in adv[0]]
     ca = [torch.from_numpy(x).to(dev) for x in adv[1]]
     idx = torch.arange(256, device=dev, dtype=torch.int32)
     got_a = score_pairs(qa, ca, idx, idx, 0.2)
-    want_a = score_pairs_ref(*qa, *ca, 0.2)
-    torch.cuda.synchronize()
-    err_a = int((got_a.long() - want_a.long()).abs().max())
+    err_a = max_err([got_a], [score_pairs_ref(*qa, *ca, 0.2)])
     ga = got_a.cpu().numpy()
     nat_a = native_check(fn, adv[0], adv[1], range(256), range(256), ga,
                          jaccard_to_identity)
@@ -335,17 +587,50 @@ def main() -> int:
         f"{ga[:, COLS.index('n_shared')].mean():.0f}")
     results["score_pairs"]["err"] = max(err3, err_a)
     nat_bad += nat_a
+
+    # kernel 4: the primary pairs' ordered sketches, then adversarial rows
+    ma = merge_rows(store, qi) + merge_rows(store, ci)
+    OW = 2 * S
+    merge2.launches = 0
+    err4 = max_err(merge2(*ma, out_width=OW), mg.merge2_ref(*ma, OW))
+    (xa0, xa1), (xb0, xb1) = adversarial_merge_rows(37, S, bench.SEED)
+    xa = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+          for x in (xa0, xa1, xb0, xb1)]
+    err4x = max_err(merge2(*xa), mg.merge2_ref(*xa))
+    merge_launches = merge2.launches
+    log(f"[2] kernel 4 merge2 on 37 adversarial row pairs at S={S}: "
+        f"max|err| {err4x}")
+    packed = torch.cat([mg.pack_keys(ma[0], ma[1]),
+                        mg.pack_keys(ma[2], ma[3])], dim=1)
+    # bytes: four [T, S] limb inputs, two [T, OW] outputs; operations: a
+    # binary search of ceil(log2(S + 1)) steps per key, ~4 INT32 ops each
+    results["merge2"] = dict(
+        err=max(err4, err4x), ms=time_ms(lambda: merge2(*ma, out_width=OW)),
+        plain_ms=time_ms(lambda: mg.merge2_ref(*ma, OW)),
+        library_ms=time_ms(lambda: torch.sort(packed, dim=1)),
+        **bound(T * S * 4 * 4 + 2 * T * OW * 4,
+                T * 2 * S * math.ceil(math.log2(S + 1)) * 4, rate))
+    log(f"[2] kernel 4 merge2 [{T}, {S}] -> [{T}, {OW}] on primary pair "
+        f"sketches: {results['merge2']}")
     failures = [n for n, r in results.items() if r["err"] != 0]
     if nat_bad:
         failures.append("score_pairs vs native")
+    if bad_w:
+        failures.append("filter weights device vs host")
     if failures:
         raise AssertionError(f"kernels disagree: {failures}")
 
+    # phase 2's tensors go before the main-path runs read peak memory
+    del h, act, hr, ar, h2, v2, g, w2, a2, store, cols, got, want
+    del gathered, qa, ca, got_a, ma, xa, packed
     launches = dict.fromkeys(kern, 0)
 
-    def add(counts):
+    def add(counts, need):
         for k, v in counts.items():
             launches[k] += v
+        missing = [k for k in need if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"the path skipped {missing}: {counts}")
 
     def mib(b):
         return f"{b / 2**20:.1f} MiB"
@@ -354,7 +639,7 @@ def main() -> int:
     _, n_nat, threads, nat_sha, nat_t = bench.bench_native(reads)
     ov = TorchOverlapper(device="cuda")
     lines, counts, cold, steady, peak = run_main_path(ov, reads, kern)
-    add(counts)
+    add(counts, ("min_reduce_w1", "score_pairs"))
     sha = bench.lineset_sha256(lines)
     log(f"[3] primary: {len(lines)} lines (native {n_nat}), sha256 "
         f"{sha[:16]} native {nat_sha[:16]}, launches {counts}; cold "
@@ -362,28 +647,26 @@ def main() -> int:
         f"{nat_t} s on {threads} threads")
     if len(lines) != EXPECTED_PRIMARY or sha != nat_sha:
         raise AssertionError("primary workload line set differs")
-    if counts["min_reduce_w1"] == 0 or counts["score_pairs"] == 0:
-        raise AssertionError(f"primary run skipped a kernel: {counts}")
 
     # ---- phase 4: repeat mix ----
     mix = repeat_mix(bench)
     _, n_nat, _, nat_sha, _ = bench.bench_native(mix)
     ov = TorchOverlapper(device="cuda")
     lines, counts, cold, steady, peak = run_main_path(ov, mix, kern)
-    add(counts)
+    add(counts, ("weighted_min_reduce", "score_pairs"))
     sha = bench.lineset_sha256(lines)
     log(f"[4] repeat mix: {len(lines)} lines (native {n_nat}), sha256 "
         f"{sha[:16]} native {nat_sha[:16]}, launches {counts}; cold "
         f"{cold:.3f} s, steady {steady:.3f} s, peak {mib(peak)}")
-    if sha != nat_sha or counts["weighted_min_reduce"] == 0:
-        raise AssertionError("repeat mix differs or kernel 2 never ran")
+    if sha != nat_sha:
+        raise AssertionError("repeat mix line set differs")
 
     # ---- phase 5: lognormal10k ----
     reads10k, _, _ = bench.make_reads_placed(10_000, seed=bench.SEED + 1)
     _, n_nat, threads, nat_sha, nat_t = bench.bench_native(reads10k)
     ov = TorchOverlapper(device="cuda")
     lines, counts, cold, steady, peak = run_main_path(ov, reads10k, kern)
-    add(counts)
+    add(counts, ("min_reduce_w1", "score_pairs"))
     sha = bench.lineset_sha256(lines)
     log(f"[5] lognormal10k: {len(lines)} lines (native {n_nat}), sha256 "
         f"{sha} native {nat_sha}, launches {counts}; cold {cold:.3f} s, "
@@ -391,22 +674,130 @@ def main() -> int:
         f"{threads} threads; stats {ov.stats}")
     if len(lines) != EXPECTED_LOGNORMAL10K or sha != nat_sha:
         raise AssertionError("lognormal10k line set differs")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("JAX was imported")
+
+    # ---- phase 6: filtered2k ----
+    _, n_nat, threads, nat_sha, nat_t = bench.bench_native(
+        reads_f, extra=("-f", filter_path))
+    ov = TorchOverlapper(device="cuda", kmer_filter=VectorFrequencyFilter(
+        fc, "cuda"))
+    lines, counts, cold, steady, peak = run_main_path(ov, reads_f, kern)
+    add(counts, ("weighted_min_reduce", "score_pairs"))
+    sha = bench.lineset_sha256(lines)
+    fa = os.path.join(tmp.name, "reads_f.fa")
+    with open(fa, "w") as f:
+        f.writelines(f">r{i}\n{r}\n" for i, r in enumerate(reads_f))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "mhap_tpu_torch.cli.main",
+                          "-s", fa, "-f", filter_path], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    cli_s = time.perf_counter() - t0
+    cli_lines = sorted(cli.stdout.splitlines())
+    log(f"[6] filtered2k: {len(lines)} lines (native -f {n_nat}), sha256 "
+        f"{sha} native {nat_sha}, launches {counts}; cold {cold:.3f} s, "
+        f"steady {steady:.3f} s, peak {mib(peak)}; native {nat_t} s on "
+        f"{threads} threads; CLI -f: {len(cli_lines)} lines, equal to the "
+        f"library's: {cli_lines == lines} ({cli_s:.1f} s, process "
+        f"included)")
+    if (len(lines) != EXPECTED_FILTERED2K or sha != nat_sha
+            or cli_lines != lines):
+        raise AssertionError("filtered2k line set differs")
+
+    # ---- phase 7: ultra-long mix ----
+    reads_u = ultra_long_mix(bench)
+    _, n_nat, threads, nat_sha, nat_t = bench.bench_native(reads_u)
+    ov = TorchOverlapper(device="cuda")
+    lines, counts, cold, steady, peak = run_main_path(ov, reads_u, kern)
+    add(counts, ("min_reduce_w1", "weighted_min_reduce", "score_pairs"))
+    sha = bench.lineset_sha256(lines)
+    long_hid = set(range(1, 17))
+    long_lines = sum(1 for line in lines
+                     if {int(x) for x in line.split()[:2]} & long_hid)
+    # kernel 2 on the chunk of the 32 long strands, as _sketch_chunk
+    # builds it
+    strands = []
+    for r in reads_u[:16]:
+        c = np.frombuffer(r.encode(), np.uint8)
+        strands += [c, _rc_codes(c)]
+    strands.sort(key=len)
+    hl, vl = code_rows(strands, k1, dev)
+    gl = mh.sort_and_count(hl, vl)
+    wl = torch.where(gl["first"], gl["count"], 0)
+    al = gl["first"] & (wl > 0)
+    k2_long_ms = time_ms(lambda: weighted_min_reduce(
+        gl["h"], wl, al, gl["tiebreak"], H), reps=3)
+    k2_long = bound(hl.numel() * 17 + len(strands) * H * 4,
+                    int(wl[al].sum()) * H * OPS_PER_STREAM_STEP, rate)
+    log(f"[7] ultra-long mix: {len(reads_u)} reads (16 of "
+        f"{min(map(len, reads_u[:16]))}-{max(map(len, reads_u[:16]))} bp), "
+        f"{len(lines)} lines ({long_lines} with a long read; native "
+        f"{n_nat}), sha256 {sha} native {nat_sha}, launches {counts}; cold "
+        f"{cold:.3f} s, steady {steady:.3f} s, peak {mib(peak)}; native "
+        f"{nat_t} s on {threads} threads; kernel 2 on the 32 long strands "
+        f"{tuple(hl.shape)}: {k2_long_ms:.3f} ms, bound "
+        f"{k2_long['bound_ms']:.3f} ms ({k2_long['bound_by']}), "
+        f"{len(strands)} blocks for "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    if sha != nat_sha or long_lines == 0:
+        raise AssertionError("ultra-long mix line set differs")
+
+    # ---- phase 8: long strands past the CELLS budget ----
+    reads_s = ultra_long_mix(bench, seed=4245, genome_len=2_000_000,
+                             lens=list(range(380_000, 404_000, 1_000)))
+    _, n_nat, threads, nat_sha, nat_t = bench.bench_native(reads_s)
+    ov = TorchOverlapper(device="cuda")
+    chunks = []
+    sketch_chunk = ov._sketch_chunk
+
+    def recorded(codes, lens):
+        chunks.append(codes.shape)
+        return sketch_chunk(codes, lens)
+
+    ov._sketch_chunk = recorded
+    lines, counts, cold, steady, peak = run_main_path(ov, reads_s, kern)
+    add(counts, ("weighted_min_reduce", "score_pairs"))
+    sha = bench.lineset_sha256(lines)
+    shapes = chunks[:len(chunks) // 5]  # one of run_main_path's 5 runs
+    log(f"[8] {len(reads_s)} reads of 380,000-403,000 bp: chunks (rows, "
+        f"width) {shapes} at CELLS {ov.CELLS}; {len(lines)} lines (native "
+        f"{n_nat}), sha256 {sha} native {nat_sha}, launches {counts}; cold "
+        f"{cold:.3f} s, steady {steady:.3f} s, peak {mib(peak)}; native "
+        f"{nat_t} s on {threads} threads")
+    full = [r * w for r, w in shapes if r * w > ov.CELLS - w]
+    if (len(shapes) < 2 or not full
+            or max(r * w for r, w in shapes) > ov.CELLS):
+        raise AssertionError(f"no chunk was cut to the CELLS budget: "
+                             f"{shapes}")
+    if sha != nat_sha or not lines:
+        raise AssertionError("CELLS-split line set differs")
+
+    for name in path_kernels:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never ran on a path: {launches}")
+    launches["merge2"] = merge_launches
+    bad_mods = [m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                              "mhap_tpu")]
+    if bad_mods:
+        raise AssertionError(f"imported {bad_mods[:5]}")
+    tmp.cleanup()
 
     src = {"min_reduce_w1": ("mhap_tpu_torch/csrc/minhash.cu",
                              "mhap_tpu/ops/minhash_pallas.py:156"),
            "weighted_min_reduce": ("mhap_tpu_torch/csrc/minhash.cu",
                                    "mhap_tpu/ops/minhash_pallas.py:193"),
            "score_pairs": ("mhap_tpu_torch/csrc/scorer.cu",
-                           "mhap_tpu/ops/scorer_pallas.py:471")}
+                           "mhap_tpu/ops/scorer_pallas.py:471"),
+           "merge2": ("mhap_tpu_torch/csrc/merge.cu",
+                      "mhap_tpu/ops/merge_pallas.py:117 (no caller on the "
+                      "overlap path, as in JAX: launches are phase 2's "
+                      "checks)")}
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src[n][0],
          "replaces": src[n][1], "launches": launches[n],
          "max_abs_err": results[n]["err"], "ms": results[n]["ms"],
-         "plain_ms": results[n]["plain_ms"]} for n in kern]}))
+         "plain_ms": results[n]["plain_ms"],
+         "bound_ms": results[n]["bound_ms"],
+         "bound_by": results[n]["bound_by"],
+         "library_ms": results[n]["library_ms"]} for n in kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """MHAP-compatible command line for the PyTorch + CUDA port.
 
     python -m mhap_tpu_torch.cli.main -s reads.fa [-q queries.fa]
+        [-f kmers.txt[.gz] [--repeat-weight W] [--no-tf] ...]
 
-Same flags, presets, validation and stderr stats block as
-``mhap_tpu.cli.main`` (whose option parser it reuses), with the port's
-``TorchOverlapper`` on the GPU in place of the JAX pipeline.  Not ported
-yet: ``.dat`` input, ``-p`` (binary precompute) and ``-f`` (k-mer filter);
-they stop with an error.
+Same flags, presets, validation and stderr stats block as the JAX
+package's CLI (``cli/options.py`` holds the port's copy of its parser),
+with the port's ``TorchOverlapper`` on the GPU in place of the JAX
+pipeline.  ``-f`` takes a k-mer frequency file at ``--supress-noise 0``.
+Not ported yet, and stopping with an error: ``.dat`` input, ``-p``
+(binary precompute), ``--supress-noise 1/2`` and ``--backend`` other
+than ``device``.
 """
 
 from __future__ import annotations
@@ -17,10 +20,9 @@ import time
 
 import numpy as np
 
-from mhap_tpu.cli.main import PRESETS, _load_reads, build_options, \
-    options_to_cfg
-from mhap_tpu.io.fasta import list_sequence_files
-from mhap_tpu.io.formats import write_lines
+from ..io.fasta import list_sequence_files, open_text
+from ..io.formats import write_lines
+from .options import PRESETS, _load_reads, build_options, options_to_cfg
 
 
 def _not_ported(what: str) -> SystemExit:
@@ -42,44 +44,88 @@ def main(argv=None) -> int:
         for name, val in PRESETS[st].items():
             if not o.get(name).is_set:
                 o.get(name).value = val
-    if o.get("-p").value:
-        raise _not_ported("-p (binary precompute)")
-    if o.get("-f").value:
-        raise _not_ported("-f (k-mer filter)")
-    s_file, q_file = o.get("-s").value, o.get("-q").value
-    if not s_file:
-        print("Please set the -s option. See options below:")
+    s_file, p_file, q_file = (o.get(f).value for f in ("-s", "-p", "-q"))
+    if not s_file and not p_file:
+        print("Please set the -s or the -p options. See options below:")
         print(o.help_menu())
         return 1
-    for path in (s_file, q_file):
-        if path.endswith(".dat"):
-            raise _not_ported(".dat input")
-        if path and not os.path.exists(path):
-            print(f"Could not find requested file/folder: {path}")
+    if p_file and not q_file:
+        print("Please set the -q option. See options below:")
+        print(o.help_menu())
+        return 1
+    for flag in ("-p", "-s", "-q", "-f"):
+        v = o.get(flag).value
+        if v and not os.path.exists(v):
+            print(f"Could not find requested file/folder: {v}")
             return 1
     checks = [
+        (o.get("--num-threads").value <= 0,
+         "Number of threads must be positive."),
         (o.get("-k").value <= 0, "k-mer size must be positive."),
         (o.get("--num-min-matches").value <= 0,
          "Minimum number of matches must be positive."),
         (o.get("--min-store-length").value < 0,
          "The minimum read length stored must be >=0."),
+        (o.get("--repeat-idf-scale").value < 1.0,
+         "The minimum repeat idf scale must be >=1.0."),
         (o.get("--max-shift").value < -1.0,
          "The minimum shift must be greater than -1."),
         (not 0.0 <= o.get("--threshold").value <= 1.0,
          "The second stage filter threshold must be 0<=threshold<=1.0."),
+        (not 0 <= o.get("--supress-noise").value <= 2,
+         "The --supress-noise parameter must be in [0,2]."),
     ]
     for bad, msg in checks:
         if bad:
             print(msg)
             return 1
+    if p_file:
+        raise _not_ported("-p (binary precompute)")
+    if o.get("--backend").value != "device":
+        raise _not_ported(f"--backend {o.get('--backend').value}")
+    if s_file.endswith(".dat") or q_file.endswith(".dat"):
+        raise _not_ported(".dat input")
+    if o.get("-f").value and o.get("--supress-noise").value:
+        raise _not_ported(
+            f"--supress-noise {o.get('--supress-noise').value}")
     print("Running with these settings:", file=sys.stderr)
     print(o, file=sys.stderr)
-    from ..pipeline.overlapper import TorchOverlapper
-
     t_total = time.time()
-    run_overlap(o, TorchOverlapper(options_to_cfg(o)))
+    run_overlap(o, build_overlapper(o))
     print(f"Total time (s): {time.time() - t_total}", file=sys.stderr)
     return 0
+
+
+def load_filter(o):
+    """The ``-f`` file as an ``io.filter.FrequencyCounts``, or None
+    (mhap_tpu/cli/main.py load_filter)."""
+    from ..io.filter import FrequencyCounts
+
+    path = o.get("-f").value
+    if not path:
+        return None
+    rw = o.get("--repeat-weight").value
+    offset = rw if 0.0 <= rw < 1.0 else 0.0
+    t0 = time.time()
+    print(f"Reading in filter file {path}.", file=sys.stderr)
+    with open_text(path) as f:
+        fc = FrequencyCounts(
+            f, o.get("--filter-threshold").value, offset,
+            o.get("--supress-noise").value, o.get("--no-tf").value,
+            o.get("--repeat-idf-scale").value, not o.get("--no-rc").value)
+    print(f"Time (s) to read filter file: {time.time() - t0}",
+          file=sys.stderr)
+    return fc
+
+
+def build_overlapper(o, device="cuda"):
+    """The run's ``TorchOverlapper`` with its ``-f`` filter, if any."""
+    from ..pipeline.freqfilter import VectorFrequencyFilter
+    from ..pipeline.overlapper import TorchOverlapper
+
+    fc = load_filter(o)
+    vf = VectorFrequencyFilter(fc, device) if fc is not None else None
+    return TorchOverlapper(options_to_cfg(o), device, kmer_filter=vf)
 
 
 def run_overlap(o, ov) -> None:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``mhap_tpu_torch/csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library lands in
+Each source compiles with its own ``nvcc`` for ``sm_90a``, all at once;
+the objects link into one shared library with a plain C interface,
+loaded with ``ctypes``.  The library lands in
 ``mhap_tpu_torch/build/``, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads at once.  Nothing here
 runs at import time: the first CUDA launch calls ``kernels()``.
@@ -28,8 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # --fmad=false: the scorer's (int)(overlap * max_shift) must be the plain
 # IEEE double product of the Java reference
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "--fmad=false"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "--fmad=false"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +38,7 @@ SIGNATURES = {
     "mhap_min_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "mhap_score_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          ctypes.c_double, _P, _P],
+    "mhap_merge2": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -79,19 +80,34 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+        jobs = []
+        for src in (p for p in _sources() if p.endswith(".cu")):
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            jobs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, _obj, proc in jobs:
+            _out, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{os.path.basename(src)} "
+                              f"({proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("nvcc failed: " + "\n".join(errors))
+        lib = os.path.join(tmp, "lib.so")
+        r = subprocess.run([nvcc, "-shared", "-o", lib,
+                            *[obj for _src, obj, _p in jobs]],
                            capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-        os.replace(tmp, out)
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -9,7 +9,9 @@ low half of the winner's hash on even slots and the high half on odd ones.
 
 ``min_reduce_w1_ref`` and ``weighted_min_reduce_ref`` are the plain PyTorch
 versions of the two CUDA kernels in ``minhash_kernels.py``.  A row with no
-active k-mer yields zeros (the pipeline drops such rows).
+active k-mer yields zeros (the pipeline drops such rows).  With a k-mer
+filter, ``minhash_filtered_rows`` weights each distinct k-mer by the
+filter (tf-idf or legacy) instead of by its count.
 """
 
 from __future__ import annotations
@@ -140,3 +142,18 @@ def minhash_weighted_rows(h: torch.Tensor, valid: torch.Tensor,
     w = torch.where(g["first"], g["count"], 0)
     active = g["first"] & (w > 0)
     return reduce_fn(g["h"], w, active, g["tiebreak"], num_hashes)
+
+
+def minhash_filtered_rows(h: torch.Tensor, valid: torch.Tensor, weights,
+                          num_hashes: int, reduce_fn):
+    """Filtered sketch of every row (mhap_tpu/pipeline/overlapper.py
+    ``_sketch_core`` filter branch :284-306): dedup by ``sort_and_count``,
+    ``weights(keys, counts)`` (the filter's int32 weights) at each run's
+    first element, ``active = first & (w > 0)``, then ``reduce_fn`` at
+    those exact weights.  Returns (sketch int32 [B, num_hashes],
+    n_active [B]); a row with no active k-mer is dropped by the caller."""
+    g = sort_and_count(h, valid)
+    w = torch.where(g["first"], weights(g["h"], g["count"]), 0)
+    active = g["first"] & (w > 0)
+    mh = reduce_fn(g["h"], w, active, g["tiebreak"], num_hashes)
+    return mh, active.sum(dim=1)

@@ -2,12 +2,15 @@
 mhap_tpu/pipeline/overlapper.py, ``TpuOverlapper``).
 
   reads -> upper-cased ASCII rows, sorted by length and cut into chunks of
-    ROWS rows, each as wide as its longest read (one host->device copy per
-    chunk; both strands as bytes, the reverse complement made on the host)
+    at most ROWS rows and CELLS row x width cells, each as wide as its
+    longest read (one host->device copy per chunk; both strands as bytes,
+    the reverse complement made on the host)
     -> murmur3_128 16-mer hashes (ops/murmur3.py)
-    -> weighted-MinHash min-reduce: rows without a repeated k-mer through
-       kernel 1 (min_reduce_w1), rows with one through sort_and_count and
-       kernel 2 (weighted_min_reduce) at their exact counts
+    -> weighted-MinHash min-reduce: without a filter, rows with no
+       repeated k-mer through kernel 1 (min_reduce_w1) and rows with one
+       through sort_and_count and kernel 2 (weighted_min_reduce) at their
+       exact counts; with a k-mer filter (pipeline/freqfilter.py), every
+       row through kernel 2 at its tf-idf or legacy weights
     -> murmur3_32 12-mers + bottom-k sort (ops/bottomk.py)
   -> SketchStore: columns stay on the device
   -> exact sorted-postings vote (index/postings.py) + suppression rules
@@ -15,19 +18,20 @@ mhap_tpu/pipeline/overlapper.py, ``TpuOverlapper``).
      from the store by index
   -> host float64 identity per distinct (inter, k) + M4 lines.
 
-The emitted line set equals ``TpuOverlapper``'s.  Not in this port yet:
-the k-mer filter path and reads of LONG_READ_THRESHOLD bases or more
-(both raise NotImplementedError).
+The emitted line set equals ``TpuOverlapper``'s.  Reads of any length take
+the same path: a read of a megabase is one row of its own chunk (the JAX
+package streams reads of 131,072 bases or more through a windowed
+sketcher, ``_sketch_long``, whose store equals the dense one).
 """
 
 from __future__ import annotations
 
+import math
 import time
+from functools import partial
 
 import numpy as np
 import torch
-
-from mhap_tpu.oracle import scorer as _oscorer
 
 from ..device import resolve_device
 from ..index import postings as _postings
@@ -37,6 +41,7 @@ from ..ops import murmur3 as _murmur3
 from ..ops.minhash_kernels import min_reduce_w1, weighted_min_reduce
 from ..ops.scorer import COLS as SCORE_COLS
 from ..ops.scorer_kernels import score_pairs as _score_pairs_kernel
+from ..utils.native import format_m4
 
 DEFAULTS = dict(
     kmer_size=16,
@@ -61,6 +66,16 @@ for _a, _b in [("A", "T"), ("C", "G"), ("M", "K"), ("R", "Y"), ("W", "W"),
 def _rc_codes(codes: np.ndarray) -> np.ndarray:
     """Reverse complement of ASCII codes (utils/Utils.java rc(), IUPAC)."""
     return _RC_TABLE[codes[::-1]]
+
+
+def jaccard_to_identity(score: float, kmer_size: int) -> float:
+    """Mash distance -> identity (BottomOverlapSketch.jaccardToIdentity
+    :391-395), as scalar math.log/exp: numpy's SIMD exp/log can be 1 ulp
+    off Java's."""
+    if score <= 0.0:
+        return 0.0
+    d = -1.0 / kmer_size * math.log(2.0 * score / (1.0 + score))
+    return math.exp(-d)
 
 
 class SketchStore:
@@ -105,21 +120,30 @@ class SketchStore:
 
 class TorchOverlapper:
     """Single-GPU overlapper; ``device="cpu"`` runs the kernels' plain
-    versions (tests)."""
+    versions (tests).  ``kmer_filter`` is a
+    ``pipeline.freqfilter.VectorFrequencyFilter`` on the same device."""
 
     ROWS = 1024                  # rows per sketch chunk
-    LONG_READ_THRESHOLD = 1 << 17
+    # row x width cells per sketch chunk: 2^24 holds the widest chunk of
+    # lognormal10k (1,024 x 9,024) whole and cuts a chunk of 400 kb reads
+    # to 41 rows; the murmur3 and sort temporaries scale with it
+    CELLS = 1 << 24
     SCORE_CHUNK = 1 << 20        # pairs per scorer launch
     NATIVE_FORMAT_MIN = 65536    # batches this large format in C
 
     def __init__(self, cfg=None, device="cuda", kmer_filter=None):
-        if kmer_filter is not None:
-            raise NotImplementedError(
-                "the k-mer filter path is not ported yet")
         self.cfg = dict(DEFAULTS)
         if cfg:
             self.cfg.update(cfg)
         self.device = resolve_device(device)
+        if kmer_filter is not None and kmer_filter.device != self.device:
+            raise ValueError(f"kmer_filter lives on {kmer_filter.device}, "
+                             f"the overlapper on {self.device}")
+        rw = float(self.cfg["repeat_weight"])
+        # repeat_weight >= 1 weights by count: the plain path
+        # (mhap_tpu/pipeline/overlapper.py:873-876)
+        self._weights = (partial(kmer_filter.weights, repeat_weight=rw)
+                         if kmer_filter is not None and rw < 1.0 else None)
         self.slow_pair_count = 0  # lanes the scorer escalated: always 0
         self.stats = dict(matches_processed=0, sequences_searched=0,
                           elements_processed=0, sequences_hit=0,
@@ -129,8 +153,9 @@ class TorchOverlapper:
     # ---------------- sketching ----------------
 
     def _sketch_chunk(self, codes: np.ndarray, lens: np.ndarray):
-        """[R, W] uint8 rows -> (minhash, ordered_h, ordered_p, ordered_m)
-        device tensors (_sketch_core, overlapper.py:247)."""
+        """[R, W] uint8 rows -> (minhash, ordered_h, ordered_p, ordered_m,
+        n_active) device tensors (_sketch_core, overlapper.py:247);
+        n_active counts the k-mers the min-reduce took in each row."""
         cfg = self.cfg
         k1, k2 = cfg["kmer_size"], cfg["ordered_kmer_size"]
         H, S = cfg["num_hashes"], cfg["ordered_sketch_size"]
@@ -140,31 +165,38 @@ class TorchOverlapper:
         R, W = codes.shape
         valid1 = torch.arange(W - k1 + 1, device=dev)[None, :] < ln - k1 + 1
         h = _murmur3.kmer_hashes_128(seq, k1)
-        # rows with a repeated k-mer need the weighted kernel; the flags
-        # come to the host here, synchronously
-        dup = _minhash.dup_rows(h, valid1).cpu().numpy()
-        if not dup.any():
-            mh = min_reduce_w1(h, valid1, H)
+        if self._weights is not None:
+            mh, n_active = _minhash.minhash_filtered_rows(
+                h, valid1, self._weights, H, weighted_min_reduce)
         else:
-            mh = torch.empty((R, H), dtype=torch.int32, device=dev)
-            plain = torch.from_numpy(np.nonzero(~dup)[0]).to(dev)
-            rep = torch.from_numpy(np.nonzero(dup)[0]).to(dev)
-            if plain.numel():
-                mh[plain] = min_reduce_w1(h[plain], valid1[plain], H)
-            mh[rep] = _minhash.minhash_weighted_rows(
-                h[rep], valid1[rep], H, weighted_min_reduce)
+            n_active = valid1.sum(dim=1)
+            # rows with a repeated k-mer need the weighted kernel; the
+            # flags come to the host here, synchronously
+            dup = _minhash.dup_rows(h, valid1).cpu().numpy()
+            if not dup.any():
+                mh = min_reduce_w1(h, valid1, H)
+            else:
+                mh = torch.empty((R, H), dtype=torch.int32, device=dev)
+                plain = torch.from_numpy(np.nonzero(~dup)[0]).to(dev)
+                rep = torch.from_numpy(np.nonzero(dup)[0]).to(dev)
+                if plain.numel():
+                    mh[plain] = min_reduce_w1(h[plain], valid1[plain], H)
+                mh[rep] = _minhash.minhash_weighted_rows(
+                    h[rep], valid1[rep], H, weighted_min_reduce)
         valid2 = torch.arange(W - k2 + 1, device=dev)[None, :] < ln - k2 + 1
         h32 = _murmur3.kmer_hashes_32(seq, k2)
         oh, op, om = _bottomk.bottom_sketch(h32, valid2, S)
-        return mh, oh, op, om
+        return mh, oh, op, om, n_active
 
     def sketch_reads(self, reads: list[str], headers=None, offset: int = 0,
                      do_rc: bool = True) -> SketchStore:
         """Sketch fwd (+rc) of every read with the reference's skip rules
         (SequenceSketchStreamer.java:123-177): reads shorter than
-        min_olap_length are dropped and ids keep counting; a zero-ngram
-        forward strand drops the read, a zero-ngram rc strand drops the
-        rc entry (overlapper.py:897-921)."""
+        min_olap_length are dropped and ids keep counting; a forward strand
+        with no k-mer in its MinHash drops the read, such an rc strand
+        drops the rc entry (overlapper.py:897-921).  Under a filter that
+        counts only k-mers of weight > 0 (a legacy run drops a read whose
+        k-mers are all file k-mers)."""
         cfg = self.cfg
         k1, k2 = cfg["kmer_size"], cfg["ordered_kmer_size"]
         H, S = cfg["num_hashes"], cfg["ordered_sketch_size"]
@@ -172,10 +204,6 @@ class TorchOverlapper:
         for i, r in enumerate(reads):
             if len(r) < cfg["min_olap_length"]:
                 continue
-            if len(r) >= self.LONG_READ_THRESHOLD:
-                raise NotImplementedError(
-                    f"reads of {self.LONG_READ_THRESHOLD} bases or more "
-                    "(windowed sketcher) are not ported yet")
             hid = i + 1 + offset
             hdr = headers[i] if headers is not None else None
             codes = np.frombuffer(r.upper().encode("ascii"), dtype=np.uint8)
@@ -189,22 +217,33 @@ class TorchOverlapper:
         oh = torch.empty((N, S), dtype=torch.int32, device=dev)
         op = torch.empty((N, S), dtype=torch.int32, device=dev)
         om = torch.empty((N,), dtype=torch.int32, device=dev)
+        n_active = torch.empty((N,), dtype=torch.int64, device=dev)
         # length bucketing: sorted by length, each chunk trimmed to its
-        # longest read (every [B, n] op scales with the width)
+        # longest read (every [B, n] op scales with the width) and cut to
+        # CELLS cells, so long reads come last in chunks of a few rows
         order = np.argsort(lens, kind="stable")
-        for s in range(0, N, self.ROWS):
-            idx = order[s:s + self.ROWS]
-            W = int(lens[idx].max())
-            W = max(-(-W // 64) * 64, k1, k2)
-            codes = np.zeros((len(idx), W), np.uint8)
+
+        def width(j):  # padded width of a chunk whose longest entry is j
+            return max(-(-int(lens[j]) // 64) * 64, k1, k2)
+
+        s = 0
+        while s < N:
+            R = min(self.ROWS, N - s)
+            if R * width(order[s + R - 1]) > self.CELLS:
+                # fewer rows are no wider, so R * W stays within CELLS
+                R = max(1, self.CELLS // width(order[s + R - 1]))
+            idx = order[s:s + R]
+            W = width(idx[-1])
+            codes = np.zeros((R, W), np.uint8)
             for r, j in enumerate(idx):
                 codes[r, :lens[j]] = entries[j][3]
             out = self._sketch_chunk(codes, lens[idx].astype(np.int32))
             rows = torch.from_numpy(idx).to(dev)
-            for col, val in zip((mh, oh, op, om), out):
+            for col, val in zip((mh, oh, op, om, n_active), out):
                 col[rows] = val
+            s += R
         # zero-ngram skip rules
-        mh_valid = lens - k1 + 1 > 0
+        mh_valid = n_active.cpu().numpy() > 0
         keep = np.ones(N, bool)
         for j, (hid, fwd, _hdr, _c) in enumerate(entries):
             if not mh_valid[j]:
@@ -259,7 +298,7 @@ class TorchOverlapper:
         kk = np.maximum(out["k"], 1)
         pair_key = out["inter"].astype(np.int64) * base + kk
         uniq, inv = np.unique(pair_key, return_inverse=True)
-        sc_u = np.array([_oscorer.jaccard_to_identity(
+        sc_u = np.array([jaccard_to_identity(
             float(u // base) / float(u % base), k2) for u in uniq])
         score = np.where(ok, sc_u[inv], 0.0)
         raw = np.where(ok, out["valid_cnt"].astype(np.float64), 0.0)
@@ -307,8 +346,6 @@ class TorchOverlapper:
         crc = np.where(cf, 0, 1)
         if (T >= self.NATIVE_FORMAT_MIN
                 and not any(qs.headers) and not any(cs.headers)):
-            from mhap_tpu.utils.native import format_m4
-
             return format_m4(qs.header_id[qi], cs.header_id[ci], err,
                              raw, qrc, fa1, fa2, qlen, crc, fb1, fb2,
                              clen)

@@ -3,14 +3,16 @@
 
     python3 profile_stages.py [--trace-dir DIR]
 
-For the primary workload (bench.make_reads()) and lognormal10k
-(bench.make_reads_placed(10_000, seed=SEED + 1)), after two settling runs:
+For the primary workload (bench.make_reads()), lognormal10k
+(bench.make_reads_placed(10_000, seed=SEED + 1)) and filtered2k
+(chip_smoke.filtered2k: 2,048 reads and a tf-idf filter file, read at
+--supress-noise 0), after two settling runs:
 
   * three runs of overlap_self's stages, called in its order, each timed
     on the host clock with torch.cuda.synchronize() after it; the median
     of each stage over the three runs, in ms.  ``sketch_chunks`` is the
-    part of ``sketch`` spent in the device chunks (hashing, kernels 1/2,
-    bottom-k); the rest of ``sketch`` is host work;
+    part of ``sketch`` spent in the device chunks (hashing, filter
+    weights, kernels 1/2, bottom-k); the rest of ``sketch`` is host work;
   * one more overlap_self under torch.profiler: its wall time, the device
     busy time as the union of the intervals of every kernel, copy and
     memset in the trace, the busy share (busy / wall), and the device time
@@ -138,19 +140,25 @@ def main() -> int:
     import bench
     from torch.profiler import ProfilerActivity, profile
 
+    # the smoke run's own builders, so both scripts measure one input
+    from chip_smoke import filtered2k, read_filter
+    from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
     from mhap_tpu_torch.pipeline.overlapper import TorchOverlapper
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
                           "clocks.sm", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print("card:", smi.stdout.strip().splitlines()[0], flush=True)
-    workloads = (
-        ("primary", bench.make_reads()),
-        ("lognormal10k",
-         bench.make_reads_placed(10_000, seed=bench.SEED + 1)[0]))
     with tempfile.TemporaryDirectory() as tmp:
-        for name, reads in workloads:
-            ov = TorchOverlapper(device="cuda")
+        reads_f, filter_path = filtered2k(bench, tmp)
+        workloads = (
+            ("primary", bench.make_reads(), None),
+            ("lognormal10k",
+             bench.make_reads_placed(10_000, seed=bench.SEED + 1)[0], None),
+            ("filtered2k", reads_f, VectorFrequencyFilter(
+                read_filter(filter_path), "cuda")))
+        for name, reads, kmer_filter in workloads:
+            ov = TorchOverlapper(device="cuda", kmer_filter=kmer_filter)
             ov.overlap_self(reads)
             ov.overlap_self(reads)
             runs = [stage_times(ov, reads) for _ in range(3)]

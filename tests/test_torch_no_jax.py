@@ -1,6 +1,9 @@
-"""The port stands without JAX: imports, a small CPU run, the device
-check, and chip_smoke.py's refusal to run without a GPU or the repo."""
+"""The port stands without JAX and without the JAX package: imports, a
+small CPU run (unfiltered and filtered) with both blocked, an import scan
+of its sources, the device check, and chip_smoke.py's refusal to run
+without a GPU or the repo."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -14,6 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NO_JAX_RUN = r"""
 import sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["mhap_tpu"] = None  # so does any import of the JAX package
 import importlib, pkgutil
 import mhap_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mhap_tpu_torch.__path__,
@@ -24,18 +28,26 @@ import numpy as np
 from mhap_tpu_torch.ops.minhash_kernels import (min_reduce_w1,
                                                 weighted_min_reduce)
 from mhap_tpu_torch.ops.scorer_kernels import score_pairs
+from mhap_tpu_torch.io.filter import FrequencyCounts
+from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
 from mhap_tpu_torch.pipeline.overlapper import TorchOverlapper
 rng = np.random.default_rng(3)
 genome = rng.integers(0, 4, 6000)
 base = np.frombuffer(b"ACGT", np.uint8)
 reads = [bytes(base[genome[s:s + 2500]]).decode() for s in (0, 700, 1500, 3000)]
-lines = TorchOverlapper(dict(num_hashes=64, ordered_sketch_size=256),
-                        device="cpu").overlap_self(reads)
+cfg = dict(num_hashes=64, ordered_sketch_size=256)
+lines = TorchOverlapper(cfg, device="cpu").overlap_self(reads)
 assert len(lines) >= 3, lines
+kmers = [reads[0][i:i + 16] for i in range(0, 400, 20)]
+fc = FrequencyCounts(["20 20"] + [f"{k} 0.001" for k in kmers], 1e-5, 0.9,
+                     0, False, 3.0, True)
+filt = TorchOverlapper(cfg, device="cpu", kmer_filter=VectorFrequencyFilter(
+    fc, "cpu")).overlap_self(reads)
+assert len(filt) >= 3 and filt != lines, filt
 assert (min_reduce_w1.launches, weighted_min_reduce.launches,
         score_pairs.launches) == (0, 0, 0)
-assert not any(m.startswith("jax") and sys.modules[m] is not None
-               for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "mhap_tpu")
+               and sys.modules[m] is not None for m in sys.modules)
 print(len(names), len(lines))
 """
 
@@ -49,16 +61,40 @@ def test_port_imports_and_runs_without_jax():
     assert n_modules >= 14 and n_lines >= 3
 
 
-def test_no_jax_import_in_port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+def imported_roots(path: str) -> set:
+    """Top-level package of every absolute import in a source file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def port_sources() -> list:
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "profile_stages.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "mhap_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_no_jax_import_in_port_sources():
+    for path in port_sources():
+        assert "jax" not in imported_roots(path), path
+
+
+def test_no_jax_package_import_in_port_sources():
+    """Not even the JAX package's modules that import no JAX: the port
+    keeps its own copies (``mhap_tpu_torch`` itself is a different
+    root)."""
+    files = port_sources()
+    assert len(files) >= 25
     for path in files:
-        with open(path) as f:
-            for line in f:
-                s = line.strip()
-                assert not (s.startswith("import jax")
-                            or s.startswith("from jax")), (path, s)
+        assert "mhap_tpu" not in imported_roots(path), path
 
 
 def test_cuda_device_without_gpu_raises():

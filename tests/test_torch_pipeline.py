@@ -16,14 +16,20 @@ import pytest
 import torch
 
 from mhap_tpu.pipeline.overlapper import TpuOverlapper
-from mhap_tpu.cli.main import build_options, options_to_cfg
 from mhap_tpu_torch.cli.main import main as cli_main, run_overlap
+from mhap_tpu_torch.cli.options import build_options, options_to_cfg
+from mhap_tpu_torch.io.filter import FrequencyCounts
 from mhap_tpu_torch.index import postings
 from mhap_tpu_torch.ops.minhash_kernels import (min_reduce_w1,
                                                 weighted_min_reduce)
 from mhap_tpu_torch.ops.scorer_kernels import score_pairs
 from mhap_tpu_torch.pipeline.convert import store_from_jax
 from mhap_tpu_torch.pipeline.overlapper import TorchOverlapper
+
+# one intra-op thread: the plain kernels run many small tensor ops,
+# whose thread pools stall for seconds each when test processes
+# share the cores
+torch.set_num_threads(1)
 
 CFG = dict(num_hashes=128, ordered_sketch_size=512, num_min_matches=2)
 STATS = ("matches_processed", "sequences_searched", "elements_processed",
@@ -140,7 +146,8 @@ def test_vote_chunks_match_brute_force(monkeypatch, budget):
 
 def test_cli_self_run_gives_jax_lines(jax_run, reads, tmp_path, capsys):
     """The CLI's self run (-s reads.fa at CFG) on a CPU overlapper prints
-    the JAX line set; the unported -f stops with an error."""
+    the JAX line set; the unported -p and --backend sharded stop with an
+    error."""
     fa = tmp_path / "reads.fa"
     fa.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
     argv = ["-s", str(fa), "--num-hashes", "128", "--ordered-sketch-size",
@@ -150,7 +157,9 @@ def test_cli_self_run_gives_jax_lines(jax_run, reads, tmp_path, capsys):
     run_overlap(o, TorchOverlapper(options_to_cfg(o), device="cpu"))
     assert capsys.readouterr().out.splitlines() == jax_run[1]
     with pytest.raises(SystemExit, match="not ported"):
-        cli_main(argv + ["-f", str(fa)])
+        cli_main(["-p", str(tmp_path), "-q", str(tmp_path)])
+    with pytest.raises(SystemExit, match="not ported"):
+        cli_main(argv + ["--backend", "sharded"])
 
 
 def test_no_kernel_launch_on_cpu(reads):
@@ -161,10 +170,15 @@ def test_no_kernel_launch_on_cpu(reads):
             score_pairs.launches) == before
 
 
-def test_unported_paths_raise(reads):
-    ov = TorchOverlapper(CFG, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ov.sketch_reads([reads[0], "A" * ov.LONG_READ_THRESHOLD])
-    with pytest.raises(NotImplementedError):
-        TorchOverlapper(CFG, device="cpu", kmer_filter=object())
-    assert ov.device == torch.device("cpu")
+def test_unported_paths_raise(reads, tmp_path):
+    """What stays unported raises: --supress-noise 1/2 in the filter
+    reader, .dat input in the CLI."""
+    for ru in (1, 2):
+        with pytest.raises(NotImplementedError):
+            FrequencyCounts(["1 1", "ACGTACGTACGTACGT 0.1"], 1e-5, 0.9, ru,
+                            False, 3.0, True)
+    dat = tmp_path / "reads.dat"
+    dat.write_bytes(b"")
+    with pytest.raises(SystemExit, match="not ported"):
+        cli_main(["-s", str(dat)])
+    assert TorchOverlapper(CFG, device="cpu").device == torch.device("cpu")

@@ -21,6 +21,11 @@ from mhap_tpu.oracle import scorer as osc
 from mhap_tpu_torch.ops.scorer import COLS, score_pairs_ref
 from mhap_tpu_torch.ops.scorer_kernels import score_pairs
 
+# one intra-op thread: the plain kernels run many small tensor ops,
+# whose thread pools stall for seconds each when test processes
+# share the cores
+torch.set_num_threads(1)
+
 
 def _mk_side(rng, S, nk, hashes):
     m = min(S, max(3, nk))
