@@ -11,7 +11,13 @@ at once), then:
      the main path's shapes, bit for bit (all outputs are integers), and
      times both (CUDA events, median of 5; 3 for kernel 2's slow plain
      version): kernel 1 also on random rows (masks, an empty row); kernel
-     2 also on the filtered2k rows with the largest tf-idf weights;
+     2 also on the filtered2k rows with the largest tf-idf weights and on
+     inputs aimed at its three passes (design_rows: weights around
+     HEAVY_MIN and at 1,000, forced ties across segments and heavy
+     k-mers, rows of 400,000 k-mers with uneven active counts, and
+     weights of 30,000, held there against the kernel's light pass
+     alone; heavy k-mers also in slabs of 100), with its time at each
+     shape and by heavy_min, all outputs bit-equal;
      kernel 3 also against the native C++ scorer (native/scorer_ffi.cc
      mhap_score_pair) and on adversarial pairs; kernel 4 (merge2, no
      caller on the overlap path, as in JAX) on the ordered sketches of
@@ -23,15 +29,19 @@ at once), then:
      line-set sha256 equals the native binary's on the same reads;
   4. a repeat mix (256 reads, 32 with an internal 500 bp duplication, 2
      with an ACGTTGCA x 200 tandem insert): line set equal to native's;
+     kernel 2 on its repeat strands by heavy_min;
   5. lognormal10k (bench.make_reads_placed(10_000, seed=SEED + 1)):
      158,246 lines, line set equal to native's;
   6. filtered2k (bench.bench_config_filtered's reads and tf-idf filter
      file, read by the port's reader at --supress-noise 0): 286,410 lines,
      line set equal to the native binary's with -f; the CLI's
-     ``-s reads.fa -f kmers.txt`` prints the same lines;
+     ``-s reads.fa -f kmers.txt`` prints the same lines; kernel 2 timed
+     on the run's first chunk as _sketch_chunk builds it, with its bound,
+     and by heavy_min;
   7. an ultra-long mix (seed 4244: 16 reads of 131,072-400,000 bp and
      1,024 of 2.9 kb from a 1.5 Mb genome): line set equal to native's,
-     and kernel 2's time on the long rows;
+     and kernel 2's time on the long rows with its light-pass grid
+     (blocks, segments, heavy k-mers);
   8. 24 reads of 380,000-403,000 bp (seed 4245, a 2 Mb genome): their 48
      strands exceed TorchOverlapper.CELLS, so sketch_reads cuts them into
      a chunk filled to the budget and a rest; line set equal to native's,
@@ -40,9 +50,10 @@ Every launch counter is set to 0 right before each main-path run of
 phases 3-8 and read right after; a kernel of a path that did not launch
 there fails the run.  The bound of each kernel is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
-integer operations over the card's INT32 rate.  The last stdout lines
-are the kernels' JSON line, the card's nvidia-smi line and {"ok": true,
-"device": ...}.  Any failure exits non-zero.  Imports nothing of JAX or
+integer operations over the card's INT32 rate.  Kernel 2's entry also
+lists its time and bound at each shape timed (``timings``).  The last
+stdout lines are the kernels' JSON line, the card's nvidia-smi line and
+{"ok": true, "device": ...}.  Any failure exits non-zero.  Imports nothing of JAX or
 of the JAX package.  profile_stages.py builds its filtered2k input with
 filtered2k() and read_filter() from here, so both measure one input.
 """
@@ -68,6 +79,8 @@ INT32_LANES_PER_SM = 64    # Hopper SM (NVIDIA H100 white paper)
 # 64-bit shifts and three xors on 32-bit halves (12), the signed 64-bit
 # compare and select of the running minimum (4)
 OPS_PER_STREAM_STEP = 16
+# kernel 2's heavy-k-mer thresholds timed beside the default
+HEAVY_MIN_GRID = (16, 32, 64, 128)
 
 
 def log(msg: str) -> None:
@@ -397,6 +410,96 @@ def check_filtered(reads_f, filter_path, fc, k1: int, H: int, dev):
     return bad_w, err
 
 
+def weighted_inputs(h, valid, weights=None):
+    """Kernel 2's arguments as the main path builds them from k-mer hashes
+    (ops/minhash.py minhash_weighted_rows, or minhash_filtered_rows with
+    the filter's ``weights``): (sorted hashes, weight, active, tiebreak)."""
+    import torch
+
+    from mhap_tpu_torch.ops import minhash as mh
+
+    g = mh.sort_and_count(h, valid)
+    w = g["count"] if weights is None else weights(g["h"], g["count"])
+    w = torch.where(g["first"], w, 0)
+    return g["h"], w, g["first"] & (w > 0), g["tiebreak"]
+
+
+def design_rows(dev, heavy_min: int) -> dict:
+    """Kernel-2 inputs aimed at its three passes (numpy seed 21; random
+    hashes, weights 1-3, distinct tiebreaks):
+      edges: one row of 3,000 with k-mers at heavy_min - 1, heavy_min,
+             heavy_min + 1 and 1,000 (H = 32, so the plain version is fast);
+      ties:  two rows of 20,000 where equal hashes at equal weights sit in
+             two segments and among heavy k-mers (row 0 holds only those);
+      long:  [4, 400,000], 400,000 / 150,000 / 6,000 / 50 active k-mers,
+             1 in 500 at weights heavy_min .. heavy_min + 8;
+      w30000: two rows of 3,000 with k-mers at 30,000 and 10,000.
+    Returns {name: ((h, weight, active, tiebreak), H)}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(21)
+
+    def rows(B, n):
+        return (rng.integers(-2**63, 2**63 - 1, (B, n), dtype=np.int64),
+                rng.integers(1, 4, (B, n)).astype(np.int32),
+                np.ones((B, n), bool),
+                np.stack([rng.permutation(n) for _ in range(B)]).astype(
+                    np.int32))
+
+    out = {}
+    h, w, a, tb = rows(1, 3000)
+    w[0, 10:13], w[0, 100:103] = heavy_min - 1, heavy_min
+    w[0, 1000:1003], w[0, 2000] = heavy_min + 1, 1000
+    out["edges"] = ((h, w, a, tb), 32)
+    h, w, a, tb = rows(2, 20000)
+    for r, c1, c2, wt in ((0, 100, 10000, 3), (0, 200, 15000, heavy_min + 5),
+                          (1, 50, 9000, 2), (1, 60, 19000, heavy_min + 9)):
+        h[r, c2] = h[r, c1]
+        w[r, [c1, c2]] = wt
+    a[0] = False
+    a[0, [100, 10000, 200, 15000]] = True
+    out["ties"] = ((h, w, a, tb), 512)
+    h, w, a, tb = rows(4, 400_000)
+    heavy = rng.random(h.shape) < 1 / 500
+    w[heavy] = rng.integers(heavy_min, heavy_min + 9, int(heavy.sum()))
+    for r, m in enumerate((400_000, 150_000, 6_000, 50)):
+        a[r, m:] = False
+    out["long"] = ((h, w, a, tb), 512)
+    h, w, a, tb = rows(2, 3000)
+    w[0, 5:8], w[0, 8], w[1, 2999] = 30_000, 10_000, 30_000
+    out["w30000"] = ((h, w, a, tb), 512)
+    return {k: (tuple(torch.from_numpy(x).to(dev) for x in args), H)
+            for k, (args, H) in out.items()}
+
+
+def k2_timing(name: str, args, H: int, rate: float, reps: int = 5,
+              **kw) -> dict:
+    """Kernel 2's time on ``args`` beside its bound (bytes: 17 a k-mer in,
+    4 a slot out; operations: H * sum of active weights stream steps)."""
+    from mhap_tpu_torch.ops.minhash_kernels import weighted_min_reduce
+
+    h, w, a, _tb = args
+    ms = time_ms(lambda: weighted_min_reduce(*args, H, **kw), reps)
+    return dict(input=name, shape=list(h.shape), H=H, ms=ms, **kw,
+                **bound(h.numel() * 17 + h.shape[0] * H * 4,
+                        int(w[a].sum()) * H * OPS_PER_STREAM_STEP, rate))
+
+
+def k2_sweep(args, H: int, key: str, values) -> tuple:
+    """Kernel 2's ms at each value of one internal argument (heavy_min),
+    and the largest |difference| of its outputs from those at the first
+    value."""
+    from mhap_tpu_torch.ops.minhash_kernels import weighted_min_reduce
+
+    first = weighted_min_reduce(*args, H, **{key: values[0]})
+    err = max(max_err([weighted_min_reduce(*args, H, **{key: v})], [first])
+              for v in values)
+    ms = {v: round(time_ms(lambda: weighted_min_reduce(
+        *args, H, **{key: v})), 4) for v in values}
+    return ms, err
+
+
 def run_main_path(ov, reads, kern, n_timed: int = 3):
     """Cold run with counters reset before and read after, one settling
     run, then ``n_timed`` timed runs.  Returns (lines, counts, cold_s,
@@ -442,7 +545,9 @@ def main() -> int:
     from mhap_tpu_torch.ops import minhash as mh
     from mhap_tpu_torch.ops import murmur3
     from mhap_tpu_torch.ops.merge_kernels import merge2
-    from mhap_tpu_torch.ops.minhash_kernels import (min_reduce_w1,
+    from mhap_tpu_torch.ops.minhash_kernels import (HEAVY_MIN, heavy_kmers,
+                                                    light_segments,
+                                                    min_reduce_w1,
                                                     weighted_min_reduce)
     from mhap_tpu_torch.ops.scorer import COLS, score_pairs_ref
     from mhap_tpu_torch.ops.scorer_kernels import score_pairs
@@ -507,30 +612,51 @@ def main() -> int:
         rows.append(r[:600] + r[600:700] * rep + r[700:2000])
     rows.append(reads[600][:300] + "ACGTTGCA" * 200 + reads[600][300:600])
     h2, v2 = code_rows(rows, k1, dev)
-    g = mh.sort_and_count(h2, v2)
-    w2 = torch.where(g["first"], g["count"], 0)
-    a2 = g["first"] & (w2 > 0)
-    err2 = max_err([weighted_min_reduce(g["h"], w2, a2, g["tiebreak"], H)],
-                   [mh.weighted_min_reduce_ref(g["h"], w2, a2,
-                                               g["tiebreak"], H)])
-    B, n = h2.shape
-    results["weighted_min_reduce"] = dict(
-        err=err2,
-        ms=time_ms(lambda: weighted_min_reduce(g["h"], w2, a2,
-                                               g["tiebreak"], H)),
-        plain_ms=time_ms(lambda: mh.weighted_min_reduce_ref(
-            g["h"], w2, a2, g["tiebreak"], H), reps=3),
-        library_ms=None, **bound(B * n * 17 + B * H * 4,
-                                 int(w2[a2].sum()) * H * OPS_PER_STREAM_STEP,
-                                 rate))
+    args2 = weighted_inputs(h2, v2)
+    w2 = args2[1]
+    err2 = max_err([weighted_min_reduce(*args2, H)],
+                   [mh.weighted_min_reduce_ref(*args2, H)])
+    t2 = k2_timing("phase 2 rows", args2, H, rate)
+    k2 = results["weighted_min_reduce"] = dict(
+        err=err2, ms=t2["ms"], plain_ms=time_ms(
+            lambda: mh.weighted_min_reduce_ref(*args2, H), reps=3),
+        library_ms=None, bound_ms=t2["bound_ms"], bound_by=t2["bound_by"],
+        timings=[t2])
     log(f"[2] kernel 2 weighted_min_reduce {tuple(h2.shape)}, max weight "
-        f"{int(w2.max())}: {results['weighted_min_reduce']}")
+        f"{int(w2.max())}: {k2}")
+    # kernel 2's three passes on inputs aimed at them: each bit-equal to
+    # the plain version (at w = 30,000 to the kernel's light pass alone)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sweep_err = 0
+    for name, (args, Hd) in design_rows(dev, HEAVY_MIN).items():
+        got = weighted_min_reduce(*args, Hd)
+        if name == "w30000":
+            alone = dict(heavy_min=int(args[1].max()) + 1)
+            e = max_err([got], [weighted_min_reduce(*args, Hd, **alone)])
+            k2["timings"].append(k2_timing(f"{name}, light pass alone",
+                                           args, Hd, rate, reps=3, **alone))
+        else:
+            e = max_err([got], [mh.weighted_min_reduce_ref(*args, Hd)])
+        if name == "long":  # its heavy k-mers in slabs of 100
+            e = max(e, max_err([weighted_min_reduce(*args, Hd, slab=100)],
+                               [got]))
+        k2["err"] = max(k2["err"], e)
+        k2["timings"].append(k2_timing(name, args, Hd, rate))
+        seg, nseg = light_segments(*args[0].shape, sms)
+        log(f"[2] kernel 2 on {name} {tuple(args[0].shape)} H={Hd}: "
+            f"max|err| {e}; {nseg} segments of {seg}, "
+            f"{len(heavy_kmers(args[1], args[2]))} heavy k-mers; "
+            f"{k2['timings'][-1]}")
+    sw, e = k2_sweep(args2, H, "heavy_min", HEAVY_MIN_GRID)
+    sweep_err += e
+    log(f"[2] kernel 2 on the phase 2 rows by heavy_min (ms): {sw}; "
+        f"max|diff| {e}")
 
     # filtered2k: kernel 2 at tf-idf weights, device vs host weights
     reads_f, filter_path = filtered2k(bench, tmp.name)
     fc = read_filter(filter_path)
     bad_w, err2f = check_filtered(reads_f, filter_path, fc, k1, H, dev)
-    results["weighted_min_reduce"]["err"] = max(err2, err2f)
+    k2["err"] = max(k2["err"], err2f)
 
     ov = TorchOverlapper(device="cuda")
     store = ov.sketch_reads(reads)
@@ -613,6 +739,8 @@ def main() -> int:
     log(f"[2] kernel 4 merge2 [{T}, {S}] -> [{T}, {OW}] on primary pair "
         f"sketches: {results['merge2']}")
     failures = [n for n, r in results.items() if r["err"] != 0]
+    if sweep_err:
+        failures.append("weighted_min_reduce across plan parameters")
     if nat_bad:
         failures.append("score_pairs vs native")
     if bad_w:
@@ -621,7 +749,7 @@ def main() -> int:
         raise AssertionError(f"kernels disagree: {failures}")
 
     # phase 2's tensors go before the main-path runs read peak memory
-    del h, act, hr, ar, h2, v2, g, w2, a2, store, cols, got, want
+    del h, act, hr, ar, h2, v2, args2, w2, args, store, cols, got, want
     del gathered, qa, ca, got_a, ma, xa, packed
     launches = dict.fromkeys(kern, 0)
 
@@ -655,11 +783,24 @@ def main() -> int:
     lines, counts, cold, steady, peak = run_main_path(ov, mix, kern)
     add(counts, ("weighted_min_reduce", "score_pairs"))
     sha = bench.lineset_sha256(lines)
+    # kernel 2 on the mix's repeat rows, by heavy_min
+    strands = []
+    for r in mix:
+        c = np.frombuffer(r.encode(), np.uint8)
+        strands += [c, _rc_codes(c)]
+    hm4, vm4 = code_rows(strands, k1, dev)
+    dup = mh.dup_rows(hm4, vm4)
+    sw, e = k2_sweep(weighted_inputs(hm4[dup], vm4[dup]), H, "heavy_min",
+                     HEAVY_MIN_GRID)
+    sweep_err += e
     log(f"[4] repeat mix: {len(lines)} lines (native {n_nat}), sha256 "
         f"{sha[:16]} native {nat_sha[:16]}, launches {counts}; cold "
-        f"{cold:.3f} s, steady {steady:.3f} s, peak {mib(peak)}")
-    if sha != nat_sha:
-        raise AssertionError("repeat mix line set differs")
+        f"{cold:.3f} s, steady {steady:.3f} s, peak {mib(peak)}; kernel 2 "
+        f"on its {int(dup.sum())} repeat strands by heavy_min (ms): {sw}, "
+        f"max|diff| {e}")
+    del hm4, vm4
+    if sha != nat_sha or sweep_err:
+        raise AssertionError("repeat mix line set or kernel 2 differs")
 
     # ---- phase 5: lognormal10k ----
     reads10k, _, _ = bench.make_reads_placed(10_000, seed=bench.SEED + 1)
@@ -680,8 +821,38 @@ def main() -> int:
         reads_f, extra=("-f", filter_path))
     ov = TorchOverlapper(device="cuda", kmer_filter=VectorFrequencyFilter(
         fc, "cuda"))
+    chunks = []
+    sketch_chunk = ov._sketch_chunk
+
+    def first_chunk(codes, lens):
+        if not chunks:
+            chunks.append((codes, lens))
+        return sketch_chunk(codes, lens)
+
+    ov._sketch_chunk = first_chunk
     lines, counts, cold, steady, peak = run_main_path(ov, reads_f, kern)
     add(counts, ("weighted_min_reduce", "score_pairs"))
+    # kernel 2 on the run's first chunk, as _sketch_chunk builds it
+    codes, lens = chunks[0]
+    hc = murmur3.kmer_hashes_128(torch.from_numpy(codes).to(dev), k1)
+    vc = (torch.arange(hc.shape[1], device=dev)[None]
+          < torch.from_numpy(lens - k1 + 1).to(dev)[:, None])
+    args6 = weighted_inputs(hc, vc, ov._weights)
+    alone = dict(heavy_min=int(args6[1].max()) + 1)
+    e6 = max_err([weighted_min_reduce(*args6, H)],
+                 [weighted_min_reduce(*args6, H, **alone)])
+    k2["err"] = max(k2["err"], e6)
+    k2["timings"].append(k2_timing("filtered2k chunk", args6, H, rate))
+    sw, e = k2_sweep(args6, H, "heavy_min", HEAVY_MIN_GRID)
+    sweep_err += e
+    log(f"[6] kernel 2 on the first filtered2k chunk {tuple(hc.shape)} "
+        f"(max weight {alone['heavy_min'] - 1}; "
+        f"{light_segments(*hc.shape, sms)[1]} segments, "
+        f"{len(heavy_kmers(args6[1], args6[2]))} heavy k-mers): "
+        f"{k2['timings'][-1]}; max|err| "
+        f"vs its light pass alone {e6}; by heavy_min (ms): {sw}, "
+        f"max|diff| {e}")
+    del hc, vc, args6
     sha = bench.lineset_sha256(lines)
     fa = os.path.join(tmp.name, "reads_f.fa")
     with open(fa, "w") as f:
@@ -699,8 +870,8 @@ def main() -> int:
         f"library's: {cli_lines == lines} ({cli_s:.1f} s, process "
         f"included)")
     if (len(lines) != EXPECTED_FILTERED2K or sha != nat_sha
-            or cli_lines != lines):
-        raise AssertionError("filtered2k line set differs")
+            or cli_lines != lines or k2["err"] or sweep_err):
+        raise AssertionError("filtered2k line set or kernel 2 differs")
 
     # ---- phase 7: ultra-long mix ----
     reads_u = ultra_long_mix(bench)
@@ -720,23 +891,22 @@ def main() -> int:
         strands += [c, _rc_codes(c)]
     strands.sort(key=len)
     hl, vl = code_rows(strands, k1, dev)
-    gl = mh.sort_and_count(hl, vl)
-    wl = torch.where(gl["first"], gl["count"], 0)
-    al = gl["first"] & (wl > 0)
-    k2_long_ms = time_ms(lambda: weighted_min_reduce(
-        gl["h"], wl, al, gl["tiebreak"], H), reps=3)
-    k2_long = bound(hl.numel() * 17 + len(strands) * H * 4,
-                    int(wl[al].sum()) * H * OPS_PER_STREAM_STEP, rate)
+    args7 = weighted_inputs(hl, vl)
+    k2_long = k2_timing("ultra-long chunk", args7, H, rate)
+    k2["timings"].append(k2_long)
+    seg, nseg = light_segments(*hl.shape, sms)
     log(f"[7] ultra-long mix: {len(reads_u)} reads (16 of "
         f"{min(map(len, reads_u[:16]))}-{max(map(len, reads_u[:16]))} bp), "
         f"{len(lines)} lines ({long_lines} with a long read; native "
         f"{n_nat}), sha256 {sha} native {nat_sha}, launches {counts}; cold "
         f"{cold:.3f} s, steady {steady:.3f} s, peak {mib(peak)}; native "
         f"{nat_t} s on {threads} threads; kernel 2 on the 32 long strands "
-        f"{tuple(hl.shape)}: {k2_long_ms:.3f} ms, bound "
-        f"{k2_long['bound_ms']:.3f} ms ({k2_long['bound_by']}), "
-        f"{len(strands)} blocks for "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+        f"{tuple(hl.shape)}: {k2_long['ms']:.3f} ms, bound "
+        f"{k2_long['bound_ms']:.3f} ms ({k2_long['bound_by']}); light pass "
+        f"{len(strands) * nseg} blocks ({nseg} segments of {seg} k-mers a "
+        f"strand) on {sms} SMs, {len(heavy_kmers(args7[1], args7[2]))} "
+        f"heavy k-mers")
+    del hl, vl, args7
     if sha != nat_sha or long_lines == 0:
         raise AssertionError("ultra-long mix line set differs")
 
@@ -797,7 +967,8 @@ def main() -> int:
          "plain_ms": results[n]["plain_ms"],
          "bound_ms": results[n]["bound_ms"],
          "bound_by": results[n]["bound_by"],
-         "library_ms": results[n]["library_ms"]} for n in kern]}))
+         "library_ms": results[n]["library_ms"],
+         "timings": results[n].get("timings", [])} for n in kern]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

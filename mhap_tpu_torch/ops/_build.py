@@ -35,7 +35,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures, all returning the launch's cudaError_t as int
 SIGNATURES = {
-    "mhap_min_reduce": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "mhap_min_reduce": [_P, _P, _I, _I, _I, _P, _P],
+    "mhap_weighted_light": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P],
+    "mhap_weighted_heavy_fold": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
+                                 _P, _P, _P, _P, _P, _P],
     "mhap_score_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          ctypes.c_double, _P, _P],
     "mhap_merge2": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],

@@ -11,7 +11,9 @@ low half of the winner's hash on even slots and the high half on odd ones.
 versions of the two CUDA kernels in ``minhash_kernels.py``.  A row with no
 active k-mer yields zeros (the pipeline drops such rows).  With a k-mer
 filter, ``minhash_filtered_rows`` weights each distinct k-mer by the
-filter (tf-idf or legacy) instead of by its count.
+filter (tf-idf or legacy) instead of by its count.  ``xorshift_jump_table``
+is the table kernel 2's heavy pass jumps a stream with, and
+``xorshift_jump`` the same jump in PyTorch.
 """
 
 from __future__ import annotations
@@ -43,20 +45,59 @@ def slot_halves(keys: torch.Tensor) -> torch.Tensor:
     return (v - ((v >> 31) << 32)).to(I32)
 
 
-def weighted_min_reduce_ref(h: torch.Tensor, weight: torch.Tensor,
-                            active: torch.Tensor, tiebreak: torch.Tensor,
-                            num_hashes: int) -> torch.Tensor:
-    """Plain version of the weighted kernel.
+JUMP_BITS = 48  # xorshift_jump_table rows: jumps of fewer than 2^48 steps
 
-    h [B, n] int64 k-mer hashes, weight/tiebreak [B, n] int32, active
-    [B, n] bool.  Argmin per slot is lexicographic on (window minimum,
-    tiebreak).  Returns int32 [B, num_hashes]."""
+
+def _gf2_apply(cols: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """M·x over GF(2) for the 64x64 bit matrix M whose column b is
+    cols[b] (int64 bit patterns): the XOR of the columns of x's set bits."""
+    bit = torch.arange(64, device=x.device)
+    v = torch.where(((x[..., None] >> bit) & 1).bool(), cols, 0)
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] ^ v[..., 1::2]
+    return v[..., 0]
+
+
+def xorshift_jump_table() -> torch.Tensor:
+    """int64 [JUMP_BITS, 64]: row i holds the columns of M^(2^i), where M
+    is the xorshift step as a 64x64 bit matrix (the step is linear over
+    GF(2)).  Row 0 is the step applied to each unit vector; row i+1 is
+    row i squared."""
+    rows = [xorshift(torch.tensor(1, dtype=I64) << torch.arange(64))]
+    for _ in range(JUMP_BITS - 1):
+        rows.append(_gf2_apply(rows[-1], rows[-1]))
+    return torch.stack(rows)
+
+
+def xorshift_jump(x: torch.Tensor, j, table: torch.Tensor) -> torch.Tensor:
+    """``j`` xorshift steps of x in popcount(j) matrix products (the heavy
+    pass of csrc/minhash.cu does the same); j an int or an int64 tensor
+    broadcastable to x, 0 <= j < 2^JUMP_BITS."""
+    j = torch.as_tensor(j, dtype=I64, device=x.device)
+    table = table.to(x.device)
+    for i in range(JUMP_BITS):
+        take = ((j >> i) & 1).bool()
+        if take.any():
+            x = torch.where(take, _gf2_apply(table[i], x), x)
+    return x
+
+
+def weighted_argmin_ref(h: torch.Tensor, weight: torch.Tensor,
+                        active: torch.Tensor, tiebreak: torch.Tensor,
+                        num_hashes: int):
+    """Per row and slot, the lexicographic (window minimum, tiebreak)
+    arg-min over the active k-mers: (value int64, tiebreak int64, index
+    int64), each [B, num_hashes]; a row with no active k-mer gives
+    (INT64_MAX, INT32_MAX, -1)."""
     B, n = h.shape
     w = torch.where(active, weight.to(I64), 0)
     w_max = int(w.max()) if w.numel() else 0
     tb = torch.where(active, tiebreak.to(I64), _I32_MAX)
     x = h.clone()
-    keys = torch.zeros((B, num_hashes), dtype=I64, device=h.device)
+    val = torch.full((B, num_hashes), _I64_MAX, dtype=I64, device=h.device)
+    win_tb = torch.full_like(val, _I32_MAX)
+    idx = torch.full_like(val, -1)
+    any_active = active.any(dim=1)
     for s in range(num_hashes):
         wm = torch.full((B, n), _I64_MAX, dtype=I64, device=h.device)
         for t in range(w_max):
@@ -67,9 +108,30 @@ def weighted_min_reduce_ref(h: torch.Tensor, weight: torch.Tensor,
         m = wm.min(dim=1, keepdim=True).values
         cand = active & (wm == m)
         sel = torch.where(cand, tb, _I64_MAX).argmin(dim=1)
-        keys[:, s] = h.gather(1, sel[:, None])[:, 0]
-    keys = torch.where(active.any(dim=1, keepdim=True), keys, 0)
-    return slot_halves(keys)
+        val[:, s] = torch.where(any_active, m[:, 0], _I64_MAX)
+        win_tb[:, s] = torch.where(any_active, tb.gather(1, sel[:, None])[:, 0],
+                                   _I32_MAX)
+        idx[:, s] = torch.where(any_active, sel, -1)
+    return val, win_tb, idx
+
+
+def winner_halves(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Winning k-mer indices [B, H] (-1: none) -> int32 sketch of the
+    winners' hashes (0 where none)."""
+    keys = h.gather(1, idx.clamp(min=0))
+    return slot_halves(torch.where(idx >= 0, keys, 0))
+
+
+def weighted_min_reduce_ref(h: torch.Tensor, weight: torch.Tensor,
+                            active: torch.Tensor, tiebreak: torch.Tensor,
+                            num_hashes: int) -> torch.Tensor:
+    """Plain version of the weighted kernel.
+
+    h [B, n] int64 k-mer hashes, weight/tiebreak [B, n] int32, active
+    [B, n] bool.  Argmin per slot is lexicographic on (window minimum,
+    tiebreak).  Returns int32 [B, num_hashes]."""
+    _, _, idx = weighted_argmin_ref(h, weight, active, tiebreak, num_hashes)
+    return winner_halves(h, idx)
 
 
 def min_reduce_w1_ref(h: torch.Tensor, active: torch.Tensor,

@@ -43,7 +43,7 @@ def kernel_group(ev: dict) -> str:
         return "copies/memsets"
     if "score_pairs_kernel" in name:
         return "kernel 3 (score_pairs)"
-    if "min_reduce_kernel" in name:
+    if "min_reduce" in name:  # kernel 1, kernel 2's three passes
         return "kernels 1/2 (min-reduce)"
     if "sort" in name.lower():
         return "sorts"
