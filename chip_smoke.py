@@ -19,7 +19,11 @@ at once), then:
      alone; heavy k-mers also in slabs of 100), with its time at each
      shape and by heavy_min, all outputs bit-equal;
      kernel 3 also against the native C++ scorer (native/scorer_ffi.cc
-     mhap_score_pair) and on adversarial pairs; kernel 4 (merge2, no
+     mhap_score_pair), on adversarial pairs and on pairs aimed at its
+     block decomposition (scorer_design_pairs: one run of S equal hashes
+     each side, S shared distinct hashes, no shared hash, positions
+     repeated across hashes), with its registers, shared memory and
+     resident blocks per SM; kernel 4 (merge2, no
      caller on the overlap path, as in JAX) on the ordered sketches of
      4,096 primary candidate pairs and on 37 adversarial row pairs.  The
      device filter weights equal the host float64 ones for every (k-mer,
@@ -31,13 +35,15 @@ at once), then:
      with an ACGTTGCA x 200 tandem insert): line set equal to native's;
      kernel 2 on its repeat strands by heavy_min;
   5. lognormal10k (bench.make_reads_placed(10_000, seed=SEED + 1)):
-     158,246 lines, line set equal to native's;
+     158,246 lines, line set equal to native's; kernel 3 timed on the
+     run's whole candidate list, with its bound, and held against its
+     plain version on the first 4,096 pairs;
   6. filtered2k (bench.bench_config_filtered's reads and tf-idf filter
      file, read by the port's reader at --supress-noise 0): 286,410 lines,
      line set equal to the native binary's with -f; the CLI's
      ``-s reads.fa -f kmers.txt`` prints the same lines; kernel 2 timed
      on the run's first chunk as _sketch_chunk builds it, with its bound,
-     and by heavy_min;
+     and by heavy_min; kernel 3 as in phase 5;
   7. an ultra-long mix (seed 4244: 16 reads of 131,072-400,000 bp and
      1,024 of 2.9 kb from a 1.5 Mb genome): line set equal to native's,
      and kernel 2's time on the long rows with its light-pass grid
@@ -50,8 +56,9 @@ Every launch counter is set to 0 right before each main-path run of
 phases 3-8 and read right after; a kernel of a path that did not launch
 there fails the run.  The bound of each kernel is the larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
-integer operations over the card's INT32 rate.  Kernel 2's entry also
-lists its time and bound at each shape timed (``timings``).  The last
+integer operations over the card's INT32 rate.  The entries of kernels
+2 and 3 also list their time and bound at each shape timed
+(``timings``).  The last
 stdout lines are the kernels' JSON line, the card's nvidia-smi line and
 {"ok": true, "device": ...}.  Any failure exits non-zero.  Imports nothing of JAX or
 of the JAX package.  profile_stages.py builds its filtered2k input with
@@ -182,6 +189,51 @@ def adversarial_pairs(T: int, S: int, seed: int):
             o = np.lexsort((p, h))
             oh[t, :m], op[t, :m], om[t] = h[o], p[o], m
     return cols
+
+
+def scorer_design_pairs(S: int, seed: int):
+    """Store columns of kernel-3 pairs aimed at its decomposition (row t
+    of q against row t of c), full rows sorted by (hash, pos), 4 pairs of
+    each kind:
+      run:      S equal hashes each side, one run pair of S x S entries;
+      shared:   the same S distinct hashes each side, shifts of 2-6;
+      disjoint: no hash shared;
+      pos_rep:  20 hash values at 4 positions in q and 30 in c, so runs of
+                equal pos1 among the records span hashes.
+    Returns (q_cols, c_cols, kinds)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    kinds, sides = [], ([], [])
+    for kind in ("run", "shared", "disjoint", "pos_rep"):
+        for _ in range(4):
+            nk1 = int(rng.integers(S + 100, 3 * S))
+            nk2 = int(rng.integers(S + 100, 3 * S))
+            p1 = rng.integers(0, nk1, S)
+            p2 = rng.integers(0, nk2, S)
+            if kind == "run":
+                h1 = h2 = np.full(S, rng.integers(-2**31, 2**31 - 1))
+            elif kind == "shared":
+                h1 = h2 = rng.choice(2**32, S, replace=False) - 2**31
+                p1 = rng.integers(0, nk1 - 6, S)
+                p2 = p1 + rng.integers(2, 7, S)
+                nk2 = nk1
+            elif kind == "disjoint":
+                h = rng.choice(2**32, 2 * S, replace=False) - 2**31
+                h1, h2 = h[:S], h[S:]
+            else:
+                h1, h2 = rng.integers(0, 20, S), rng.integers(0, 20, S)
+                p1, p2 = rng.integers(0, 4, S), rng.integers(0, 30, S)
+            for side, (h, p, nk) in zip(sides, ((h1, p1, nk1),
+                                                (h2, p2, nk2))):
+                o = np.lexsort((p, h))
+                side.append((h[o], p[o], nk))
+            kinds.append(kind)
+    cols = [(np.stack([r[0] for r in side]).astype(np.int32),
+             np.stack([r[1] for r in side]).astype(np.int32),
+             np.full(len(side), S, np.int32),
+             np.array([r[2] for r in side], np.int32)) for side in sides]
+    return cols[0], cols[1], kinds
 
 
 def native_check(fn, host_q, host_c, qi, ci, out, jaccard_to_identity):
@@ -500,6 +552,61 @@ def k2_sweep(args, H: int, key: str, values) -> tuple:
     return ms, err
 
 
+def k3_timing(name: str, q_cols, c_cols, qi, ci, rate: float,
+              reps: int = 5) -> dict:
+    """Kernel 3's time on pairs (q row qi[t], c row ci[t]) beside its
+    bound.  Bytes: each distinct store row the pairs gather, read once
+    (its real (hash, pos) entries and two counts), and two indices and 16
+    output columns a pair.  Operations: two merge passes, ~8 INT32 ops a
+    cursor step over both rows' real entries."""
+    import torch
+
+    from mhap_tpu_torch.ops.scorer_kernels import score_pairs
+
+    ql, cl = qi.long(), ci.long()
+    m_sum = int(q_cols[2][ql].sum() + c_cols[2][cl].sum())
+    if q_cols is c_cols:
+        groups = ((q_cols, torch.unique(torch.cat([ql, cl]))),)
+    else:
+        groups = ((q_cols, torch.unique(ql)), (c_cols, torch.unique(cl)))
+    row_bytes = sum(int(cols[2][d].sum()) * 8 + len(d) * 8
+                    for cols, d in groups)
+    T = len(qi)
+    ms = time_ms(lambda: score_pairs(q_cols, c_cols, qi, ci, 0.2), reps)
+    return dict(input=name, pairs=T, ms=ms, row_bytes=row_bytes,
+                cursor_steps=2 * m_sum,
+                **bound(row_bytes + T * (2 * 4 + 16 * 4), 2 * m_sum * 8,
+                        rate))
+
+
+def k3_run_pairs(name: str, ov, reads, rate: float, n_check: int = 4096):
+    """Kernel 3 on a run's whole candidate list, as overlap_self builds it:
+    its timing and bound, and its max |err| against the plain version on
+    the first ``n_check`` pairs, with the plain version's time there."""
+    import numpy as np
+    import torch
+
+    from mhap_tpu_torch.ops.scorer import score_pairs_ref
+    from mhap_tpu_torch.ops.scorer_kernels import score_pairs
+
+    store = ov.sketch_reads(reads)
+    qg, cand = ov._candidates(store, ov._build_index(store), store,
+                              np.nonzero(store.is_fwd)[0], True)
+    cols = store.scorer_cols()
+    dev = cols[0].device
+    qi = torch.from_numpy(qg.astype(np.int32)).to(dev)
+    ci = torch.from_numpy(cand.astype(np.int32)).to(dev)
+    ql, cl = qi[:n_check].long(), ci[:n_check].long()
+    gathered = [c[ql] for c in cols] + [c[cl] for c in cols]
+    err = max_err([score_pairs(cols, cols, qi[:n_check], ci[:n_check], 0.2)],
+                  [score_pairs_ref(*gathered, 0.2)])
+    timing = k3_timing(f"{name}: all candidate pairs", cols, cols, qi, ci,
+                       rate)
+    timing[f"plain_ms_first_{n_check}"] = time_ms(
+        lambda: score_pairs_ref(*gathered, 0.2), reps=3)
+    return err, timing
+
+
 def run_main_path(ov, reads, kern, n_timed: int = 3):
     """Cold run with counters reset before and read after, one settling
     run, then ``n_timed`` timed runs.  Returns (lines, counts, cold_s,
@@ -550,7 +657,7 @@ def main() -> int:
                                                     min_reduce_w1,
                                                     weighted_min_reduce)
     from mhap_tpu_torch.ops.scorer import COLS, score_pairs_ref
-    from mhap_tpu_torch.ops.scorer_kernels import score_pairs
+    from mhap_tpu_torch.ops.scorer_kernels import occupancy, score_pairs
     from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
     from mhap_tpu_torch.pipeline.overlapper import (TorchOverlapper,
                                                     _rc_codes,
@@ -672,20 +779,16 @@ def main() -> int:
     want = score_pairs_ref(*gathered, 0.2)
     err3 = max_err([got], [want])
     T = len(qi)
-    m_sum = int(store.ordered_m[ql].sum() + store.ordered_m[cl].sum())
-    # bytes: the kernel gathers rows from the store by index, so each
-    # distinct row is read once: its real (hash, pos) entries and two
-    # counts; the two index vectors and 16 output columns a pair.
-    # Operations: two merge passes, ~8 INT32 ops a cursor step
-    distinct = torch.unique(torch.cat([ql, cl]))
-    row_bytes = int(store.ordered_m[distinct].sum()) * 8 + len(distinct) * 8
+    t3 = k3_timing(f"primary: first {T} candidate pairs", cols, cols, qi,
+                   ci, rate)
     results["score_pairs"] = dict(
-        err=err3, ms=time_ms(lambda: score_pairs(cols, cols, qi, ci, 0.2)),
+        err=err3, ms=t3["ms"],
         plain_ms=time_ms(lambda: score_pairs_ref(*gathered, 0.2)),
-        library_ms=None, **bound(row_bytes + T * (2 * 4 + 16 * 4),
-                                 2 * m_sum * 8, rate))
-    log(f"[2] kernel 3 bound: {len(distinct)} distinct store rows in "
-        f"{T} pairs, {row_bytes} bytes of rows, {2 * m_sum} cursor steps")
+        library_ms=None, bound_ms=t3["bound_ms"], bound_by=t3["bound_by"],
+        timings=[t3])
+    log(f"[2] kernel 3 at S={S}: {occupancy(S)}; bound on {T} pairs: "
+        f"{t3['row_bytes']} bytes of distinct rows, {t3['cursor_steps']} "
+        f"cursor steps")
     # the native C++ automaton on the same pairs
     fn = native_scorer()
     host = [store.host(n) for n in ("ordered_h", "ordered_p", "ordered_m",
@@ -711,8 +814,33 @@ def main() -> int:
         f"plain, {nat_a} lanes differ from native, ok lanes "
         f"{int(ga[:, 0].sum())}, mean shared entries "
         f"{ga[:, COLS.index('n_shared')].mean():.0f}")
-    results["score_pairs"]["err"] = max(err3, err_a)
-    nat_bad += nat_a
+    results["score_pairs"]["timings"].append(
+        k3_timing("256 adversarial pairs", qa, ca, idx, idx, rate))
+    # pairs aimed at the kernel's decomposition: runs of S equal hashes,
+    # S shared distinct hashes, none shared, positions repeated across
+    # hashes
+    dq, dc, kinds = scorer_design_pairs(S, seed=bench.SEED + 5)
+    qd = [torch.from_numpy(x).to(dev) for x in dq]
+    cd = [torch.from_numpy(x).to(dev) for x in dc]
+    idx = torch.arange(len(kinds), device=dev, dtype=torch.int32)
+    got_d = score_pairs(qd, cd, idx, idx, 0.2)
+    err_d = max_err([got_d], [score_pairs_ref(*qd, *cd, 0.2)])
+    gd = got_d.cpu().numpy()
+    nat_d = native_check(fn, dq, dc, range(len(kinds)), range(len(kinds)),
+                         gd, jaccard_to_identity)
+    for kind in dict.fromkeys(kinds):
+        sel = torch.tensor([i for i, k in enumerate(kinds) if k == kind],
+                           device=dev, dtype=torch.int32)
+        results["score_pairs"]["timings"].append(
+            k3_timing(f"design: {kind}", qd, cd, sel, sel, rate))
+    log(f"[2] kernel 3 on {len(kinds)} design pairs ({', '.join(kinds[::4])}"
+        f", 4 each): max|err| {err_d} vs plain, {nat_d} lanes differ from "
+        f"native, ok lanes {int(gd[:, 0].sum())}, escal "
+        f"{int(gd[:, COLS.index('escal')].sum())}, pass-1 records "
+        f"{gd[:, COLS.index('cnt1')].tolist()}; "
+        f"{results['score_pairs']['timings'][-4:]}")
+    results["score_pairs"]["err"] = max(err3, err_a, err_d)
+    nat_bad += nat_a + nat_d
 
     # kernel 4: the primary pairs' ordered sketches, then adversarial rows
     ma = merge_rows(store, qi) + merge_rows(store, ci)
@@ -750,7 +878,7 @@ def main() -> int:
 
     # phase 2's tensors go before the main-path runs read peak memory
     del h, act, hr, ar, h2, v2, args2, w2, args, store, cols, got, want
-    del gathered, qa, ca, got_a, ma, xa, packed
+    del gathered, qa, ca, got_a, ma, xa, packed, qd, cd, got_d
     launches = dict.fromkeys(kern, 0)
 
     def add(counts, need):
@@ -813,8 +941,12 @@ def main() -> int:
         f"{sha} native {nat_sha}, launches {counts}; cold {cold:.3f} s, "
         f"steady {steady:.3f} s, peak {mib(peak)}; native {nat_t} s on "
         f"{threads} threads; stats {ov.stats}")
-    if len(lines) != EXPECTED_LOGNORMAL10K or sha != nat_sha:
-        raise AssertionError("lognormal10k line set differs")
+    e5, t5 = k3_run_pairs("lognormal10k", ov, reads10k, rate)
+    results["score_pairs"]["timings"].append(t5)
+    log(f"[5] kernel 3 on lognormal10k's candidate pairs: {t5}; max|err| "
+        f"vs plain on the first 4,096: {e5}")
+    if len(lines) != EXPECTED_LOGNORMAL10K or sha != nat_sha or e5:
+        raise AssertionError("lognormal10k line set or kernel 3 differs")
 
     # ---- phase 6: filtered2k ----
     _, n_nat, threads, nat_sha, nat_t = bench.bench_native(
@@ -853,6 +985,11 @@ def main() -> int:
         f"vs its light pass alone {e6}; by heavy_min (ms): {sw}, "
         f"max|diff| {e}")
     del hc, vc, args6
+    e6, t6 = k3_run_pairs("filtered2k", ov, reads_f, rate)
+    results["score_pairs"]["timings"].append(t6)
+    log(f"[6] kernel 3 on filtered2k's candidate pairs: {t6}; max|err| "
+        f"vs plain on the first 4,096: {e6}")
+    results["score_pairs"]["err"] = max(results["score_pairs"]["err"], e6)
     sha = bench.lineset_sha256(lines)
     fa = os.path.join(tmp.name, "reads_f.fa")
     with open(fa, "w") as f:
@@ -870,8 +1007,8 @@ def main() -> int:
         f"library's: {cli_lines == lines} ({cli_s:.1f} s, process "
         f"included)")
     if (len(lines) != EXPECTED_FILTERED2K or sha != nat_sha
-            or cli_lines != lines or k2["err"] or sweep_err):
-        raise AssertionError("filtered2k line set or kernel 2 differs")
+            or cli_lines != lines or k2["err"] or sweep_err or e6):
+        raise AssertionError("filtered2k line set or kernel 2 or 3 differs")
 
     # ---- phase 7: ultra-long mix ----
     reads_u = ultra_long_mix(bench)

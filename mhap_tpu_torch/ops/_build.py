@@ -42,6 +42,7 @@ SIGNATURES = {
                                  _P, _P, _P, _P, _P, _P],
     "mhap_score_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          ctypes.c_double, _P, _P],
+    "mhap_score_pairs_occupancy": [_I, _P],
     "mhap_merge2": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 

@@ -1,13 +1,23 @@
 """Wrapper of the CUDA pair-scorer kernel (``csrc/scorer.cu``), which
 replaces ``score_pairs_pallas`` (mhap_tpu/ops/scorer_pallas.py:471).
 
-The kernel reads the store's [N, S] columns directly by the ``qi``/``ci``
-row indices.  For CPU tensors the wrapper gathers the rows and runs the
-plain version ``ops/scorer.score_pairs_ref``; for CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches.
+The kernel scores one pair a block of 256 threads and reads the store's
+[N, S] columns directly by the ``qi``/``ci`` row indices.  Every stage of
+getOverlapInfo runs across the block: a merge path pairs each run of
+equal hashes in the query row with the candidate's; each recordMatching
+pass runs one automaton a run pair, writing to slots that a compaction
+packs in hash order; medians by radix select; optimizeShifts as a
+segmented arg-min; block reductions for the UMVU edges; the windowed
+Jaccard from ranks and a prefix sum.  Its shared memory (36.4 KB at
+S = 1536; S <= 65,535) lets 6 blocks share an SM; ``occupancy`` reports
+what the card gives.  For CPU tensors the wrapper gathers the rows and
+runs the plain version ``ops/scorer.score_pairs_ref``; for CUDA tensors
+it launches the kernel or raises.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -63,3 +73,14 @@ def score_pairs(q_cols, c_cols, qi: torch.Tensor, ci: torch.Tensor,
 
 
 score_pairs.launches = 0
+
+
+def occupancy(S: int) -> dict:
+    """The kernel's registers a thread, static / dynamic shared bytes a
+    block, local (spill) bytes a thread and resident blocks per SM at
+    sketch size S, as the CUDA runtime reports them."""
+    info = (ctypes.c_int * 5)()
+    _build.check(_build.kernels().mhap_score_pairs_occupancy(
+        S, ctypes.addressof(info)), "score_pairs occupancy")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "local_bytes", "blocks_per_sm"), info))
