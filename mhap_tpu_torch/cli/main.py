@@ -1,15 +1,21 @@
 """MHAP-compatible command line for the PyTorch + CUDA port.
 
-    python -m mhap_tpu_torch.cli.main -s reads.fa [-q queries.fa]
-        [-f kmers.txt[.gz] [--repeat-weight W] [--no-tf] ...]
+    python -m mhap_tpu_torch.cli.main -s reads.fa|box.dat [-q queries]
+        [-f kmers.txt[.gz] [--supress-noise 0|1|2] [--repeat-weight W]
+         [--no-tf] ...]
+    python -m mhap_tpu_torch.cli.main -p fasta_dir_or_file -q dat_dir ...
 
 Same flags, presets, validation and stderr stats block as the JAX
 package's CLI (``cli/options.py`` holds the port's copy of its parser),
 with the port's ``TorchOverlapper`` on the GPU in place of the JAX
-pipeline.  ``-f`` takes a k-mer frequency file at ``--supress-noise 0``.
-Not ported yet, and stopping with an error: ``.dat`` input, ``-p``
-(binary precompute), ``--supress-noise 1/2`` and ``--backend`` other
-than ``device``.
+pipeline.  ``-s`` and each file of ``-q`` (a file or a directory) may be
+FASTA/FASTQ or ``.dat`` sketches; ``-p`` sketches each file of its
+argument into ``<name>.dat`` in the ``-q`` directory (the path Canu
+runs: ``-p`` per block, then ``-s block.dat -q dir``).  ``-f`` takes a
+k-mer frequency file at every ``--supress-noise`` mode; modes 1 and 2
+hold the file's k-mers in the reference's Guava bloom filter, as the JAX
+CLI does.  ``--backend`` other than ``device`` (sharded, oracle) is not
+ported and stops with an error.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import time
 
 import numpy as np
 
+from ..io import datstore
 from ..io.fasta import list_sequence_files, open_text
 from ..io.formats import write_lines
 from .options import PRESETS, _load_reads, build_options, options_to_cfg
@@ -30,7 +37,9 @@ def _not_ported(what: str) -> SystemExit:
                       "python -m mhap_tpu.cli.main")
 
 
-def main(argv=None) -> int:
+def main(argv=None, device="cuda") -> int:
+    """Runs the command line ``argv``; the overlapper runs on ``device``
+    (the GPU unless a caller, such as a test, asks for the CPU)."""
     argv = sys.argv[1:] if argv is None else argv
     o = build_options()
     if not o.process(argv):
@@ -79,19 +88,15 @@ def main(argv=None) -> int:
         if bad:
             print(msg)
             return 1
-    if p_file:
-        raise _not_ported("-p (binary precompute)")
     if o.get("--backend").value != "device":
         raise _not_ported(f"--backend {o.get('--backend').value}")
-    if s_file.endswith(".dat") or q_file.endswith(".dat"):
-        raise _not_ported(".dat input")
-    if o.get("-f").value and o.get("--supress-noise").value:
-        raise _not_ported(
-            f"--supress-noise {o.get('--supress-noise').value}")
     print("Running with these settings:", file=sys.stderr)
     print(o, file=sys.stderr)
     t_total = time.time()
-    run_overlap(o, build_overlapper(o))
+    if p_file:
+        run_precompute(o, build_overlapper(o, device))
+    else:
+        run_overlap(o, build_overlapper(o, device))
     print(f"Total time (s): {time.time() - t_total}", file=sys.stderr)
     return 0
 
@@ -112,7 +117,10 @@ def load_filter(o):
         fc = FrequencyCounts(
             f, o.get("--filter-threshold").value, offset,
             o.get("--supress-noise").value, o.get("--no-tf").value,
-            o.get("--repeat-idf-scale").value, not o.get("--no-rc").value)
+            o.get("--repeat-idf-scale").value, not o.get("--no-rc").value,
+            # the reference keeps the file's k-mers in a Guava bloom
+            # filter (FrequencyCounts.java:137); so does the JAX CLI
+            use_bloom=True)
     print(f"Time (s) to read filter file: {time.time() - t0}",
           file=sys.stderr)
     return fc
@@ -138,8 +146,12 @@ def run_overlap(o, ov) -> None:
     t0 = time.time()
     print("Processing files for storage in reverse index...",
           file=sys.stderr)
-    headers, reads = _load_reads(s_file, store_full_id)
-    box = ov.sketch_reads(reads, headers, do_rc=do_rc)
+    S = ov.cfg["ordered_sketch_size"]
+    if s_file.endswith(".dat"):
+        box = datstore.read_dat(s_file, 0, sketch_size=S, device=ov.device)
+    else:
+        headers, reads = _load_reads(s_file, store_full_id)
+        box = ov.sketch_reads(reads, headers, do_rc=do_rc)
     n_box = box.n_real
     print(f"Processed {n_box} unique sequences (fwd and rev).",
           file=sys.stderr)
@@ -158,11 +170,14 @@ def run_overlap(o, ov) -> None:
     offset = n_box // 2
     if q_file:
         for qf in list_sequence_files(q_file):
-            if qf.endswith(".dat"):
-                raise _not_ported(".dat input")
             t0 = time.time()
-            qh, qreads = _load_reads(qf, store_full_id)
-            queries = ov.sketch_reads(qreads, qh, offset=offset, do_rc=False)
+            if qf.endswith(".dat"):
+                queries = datstore.read_dat(qf, offset, fwd_only=True,
+                                            sketch_size=S, device=ov.device)
+            else:
+                qh, qreads = _load_reads(qf, store_full_id)
+                queries = ov.sketch_reads(qreads, qh, offset=offset,
+                                          do_rc=False)
             q_sel = np.arange(len(queries))
             write_lines(sorted(ov._find_matches(box, index, queries, q_sel,
                                                 False)), out, paf)
@@ -201,6 +216,34 @@ def run_overlap(o, ov) -> None:
           f"{jdiv(matches, hit) * 100.0}", file=sys.stderr)
     print("Average % of hashed sequences fully compared that are "
           f"matches: {jdiv(matches, compared) * 100.0}", file=sys.stderr)
+
+
+def run_precompute(o, ov) -> None:
+    """-p: each file of the -p argument sketched into <name>.dat in the
+    -q directory (mhap_tpu.cli.main.run_precompute, :453-483)."""
+    to_dir = o.get("-q").value
+    if not os.path.isdir(to_dir):
+        raise SystemExit("Target directory doesn't exit.")
+    print("Processing FASTA files for binary compression...",
+          file=sys.stderr)
+    store_full_id = o.get("--store-full-id").value
+    for pf in list_sequence_files(o.get("-p").value):
+        t0 = time.time()
+        headers, reads = _load_reads(pf, store_full_id)
+        store = ov.sketch_reads(reads, headers,
+                                do_rc=not o.get("--no-rc").value)
+        name = os.path.basename(pf)
+        i = name.rfind(".")
+        if i > 0:
+            name = name[:i]
+        out_path = os.path.join(to_dir, name + ".dat")
+        datstore.write_dat(out_path, store,
+                           ordered_kmer_size=ov.cfg["ordered_kmer_size"])
+        print(f"Processed {len(store)} sequences (fwd and rev).",
+              file=sys.stderr)
+        print(f"Read, hashed, and stored file {pf} to {out_path}.",
+              file=sys.stderr)
+        print(f"Time (s): {time.time() - t0}", file=sys.stderr)
 
 
 if __name__ == "__main__":

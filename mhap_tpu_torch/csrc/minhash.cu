@@ -48,7 +48,17 @@
 //  3. fold pass (min_reduce_fold_kernel), one thread per (row, slot): the
 //     lexicographic minimum of the row's segment partials and its heavy
 //     k-mers' values.  The minimum is associative, so the cuts are exact.
-// The light pass holds kWarps * H * 16 bytes of shared memory: H <= 1,816.
+// Large H: kernel 1 keeps H * 16 bytes of running bests a block and the
+// light pass kWarps * H * 16, in shared memory while that fits the card's
+// opt-in limit a block (cudaDevAttrMaxSharedMemoryPerBlockOptin, less the
+// static part): on the H100 H <= 14,272 and H <= 1,816.  Above it the same
+// bests live in a device-memory workspace that the wrapper allocates, one
+// slice a block, and a grid of the card's resident blocks (or fewer) loops
+// over the rows (kernel 1) or the (row, segment) blocks (light pass); each
+// lane reads and writes only the bests of its own slot, once per 32-slot
+// group, so the traffic stays small beside the stream steps.  The heavy
+// pass (its 24 KB jump table) and the fold pass hold nothing per slot and
+// take any H.
 // Traps: the window minimum is compared as a signed 64-bit value (Java's
 // long); the stream shifts right logically (Java's >>>); the slot's parity
 // picks the half; ties on value go to the smaller tiebreak across the
@@ -97,12 +107,18 @@ __device__ __forceinline__ void warp_argmin(long long& bv, int& btb,
   }
 }
 
-// Kernel 1: grid B, out [B, H] sketch halves.
+// Kernel 1: out [B, H] sketch halves.  kShared: grid B, the running bests
+// in shared memory; else a grid of resident blocks looping over the rows,
+// block b's bests at ws + b * H * 16.
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
     min_reduce_kernel(const long long* __restrict__ h,
-                      const unsigned char* __restrict__ active, int n, int H,
+                      const unsigned char* __restrict__ active, int B, int n,
+                      int H, unsigned char* __restrict__ ws,
                       int* __restrict__ out) {
-  extern __shared__ long long best_v[];     // [H] running best value
+  extern __shared__ long long smem_v[];
+  long long* best_v =                       // [H] running best value
+      kShared ? smem_v : (long long*)(ws + (size_t)blockIdx.x * H * 16);
   int* best_tb = (int*)(best_v + H);        // [H] its tiebreak
   int* best_idx = best_tb + H;              // [H] its k-mer index, -1 none
   __shared__ long long red_v[kWarps][kGroup];
@@ -110,186 +126,203 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int red_idx[kWarps][kGroup];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row = blockIdx.x;
-  const long long* hr = h + row * n;
-  const unsigned char* ar = active + row * n;
+  for (size_t row = blockIdx.x; row < (size_t)B; row += gridDim.x) {
+    const long long* hr = h + row * n;
+    const unsigned char* ar = active + row * n;
 
-  for (int s = tid; s < H; s += kThreads) {
-    best_v[s] = LLONG_MAX;
-    best_tb[s] = INT_MAX;
-    best_idx[s] = -1;
-  }
-  __syncthreads();
-
-  for (int base = 0; base < n; base += kThreads * kItems) {
-    unsigned long long x[kItems];
-    int w[kItems], tb[kItems];
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int k = base + i * kThreads + tid;
-      const bool on = k < n && ar[k];
-      x[i] = on ? (unsigned long long)hr[k] : 0ull;
-      w[i] = on ? 1 : 0;
-      tb[i] = on ? k : INT_MAX;
+    for (int s = tid; s < H; s += kThreads) {
+      best_v[s] = LLONG_MAX;
+      best_tb[s] = INT_MAX;
+      best_idx[s] = -1;
     }
-    for (int g = 0; g < H; g += kGroup) {
-      const int gn = min(kGroup, H - g);
-      for (int j = 0; j < gn; ++j) {
-        long long bv = LLONG_MAX;
-        int btb = INT_MAX, bidx = -1;
-#pragma unroll
-        for (int i = 0; i < kItems; ++i) {
-          if (w[i] <= 0) continue;
-          x[i] = xorshift(x[i]);
-          const long long wm = (long long)x[i];
-          if (lex_less(wm, tb[i], bv, btb)) {
-            bv = wm;
-            btb = tb[i];
-            bidx = base + i * kThreads + tid;
+    __syncthreads();
+
+    for (int base = 0; base < n; base += kThreads * kItems) {
+      unsigned long long x[kItems];
+      int w[kItems], tb[kItems];
+  #pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int k = base + i * kThreads + tid;
+        const bool on = k < n && ar[k];
+        x[i] = on ? (unsigned long long)hr[k] : 0ull;
+        w[i] = on ? 1 : 0;
+        tb[i] = on ? k : INT_MAX;
+      }
+      for (int g = 0; g < H; g += kGroup) {
+        const int gn = min(kGroup, H - g);
+        for (int j = 0; j < gn; ++j) {
+          long long bv = LLONG_MAX;
+          int btb = INT_MAX, bidx = -1;
+  #pragma unroll
+          for (int i = 0; i < kItems; ++i) {
+            if (w[i] <= 0) continue;
+            x[i] = xorshift(x[i]);
+            const long long wm = (long long)x[i];
+            if (lex_less(wm, tb[i], bv, btb)) {
+              bv = wm;
+              btb = tb[i];
+              bidx = base + i * kThreads + tid;
+            }
+          }
+          warp_argmin(bv, btb, bidx);
+          if (lane == 0) {
+            red_v[warp][j] = bv;
+            red_tb[warp][j] = btb;
+            red_idx[warp][j] = bidx;
           }
         }
-        warp_argmin(bv, btb, bidx);
-        if (lane == 0) {
-          red_v[warp][j] = bv;
-          red_tb[warp][j] = btb;
-          red_idx[warp][j] = bidx;
-        }
-      }
-      __syncthreads();
-      if (warp == 0 && lane < gn) {
-        const int s = g + lane;
-        long long bv = best_v[s];
-        int btb = best_tb[s], bidx = best_idx[s];
-        for (int q = 0; q < kWarps; ++q) {
-          if (lex_less(red_v[q][lane], red_tb[q][lane], bv, btb)) {
-            bv = red_v[q][lane];
-            btb = red_tb[q][lane];
-            bidx = red_idx[q][lane];
+        __syncthreads();
+        if (warp == 0 && lane < gn) {
+          const int s = g + lane;
+          long long bv = best_v[s];
+          int btb = best_tb[s], bidx = best_idx[s];
+          for (int q = 0; q < kWarps; ++q) {
+            if (lex_less(red_v[q][lane], red_tb[q][lane], bv, btb)) {
+              bv = red_v[q][lane];
+              btb = red_tb[q][lane];
+              bidx = red_idx[q][lane];
+            }
           }
+          best_v[s] = bv;
+          best_tb[s] = btb;
+          best_idx[s] = bidx;
         }
-        best_v[s] = bv;
-        best_tb[s] = btb;
-        best_idx[s] = bidx;
+        __syncthreads();
       }
-      __syncthreads();
     }
-  }
 
-  for (int s = tid; s < H; s += kThreads) {
-    const int idx = best_idx[s];
-    const unsigned long long key =
-        idx >= 0 ? (unsigned long long)hr[idx] : 0ull;
-    out[row * H + s] = (int)(unsigned)((s & 1) ? (key >> 32) : key);
+    for (int s = tid; s < H; s += kThreads) {
+      const int idx = best_idx[s];
+      const unsigned long long key =
+          idx >= 0 ? (unsigned long long)hr[idx] : 0ull;
+      out[row * H + s] = (int)(unsigned)((s & 1) ? (key >> 32) : key);
+    }
+    __syncthreads();  // this row's reads precede the next row's writes
   }
 }
 
-// Kernel 2, light pass: grid (B, nseg); block (row, g) takes the active
-// k-mers of [g * seg, (g + 1) * seg) with w < heavy_min and writes its
-// per-slot arg-min to part_* [B, nseg, H].  Each warp keeps its own
-// running best per slot in shared memory ([kWarps][H], 16 bytes each),
-// updated by the lane that owns the slot within its 32-slot group, so the
-// slot loop has no block barrier; the warps' bests meet once, at the end.
+// Kernel 2, light pass: block (row, g) takes the active k-mers of
+// [g * seg, (g + 1) * seg) with w < heavy_min and writes its per-slot
+// arg-min to part_* [B, nseg, H].  Each warp keeps its own running best
+// per slot ([kWarps][H], 16 bytes each), updated by the lane that owns
+// the slot within its 32-slot group, so the slot loop has no block
+// barrier; the warps' bests meet once, at the end.  kShared: grid (B,
+// nseg), the bests in shared memory; else a grid of resident blocks
+// looping over the B * nseg (row, g), block b's bests at
+// ws + b * kWarps * H * 16.
+template <bool kShared>
 __global__ void __launch_bounds__(kThreads)
     min_reduce_light_kernel(const long long* __restrict__ h,
                             const int* __restrict__ weight,
                             const int* __restrict__ tiebreak,
-                            const unsigned char* __restrict__ active, int n,
-                            int H, int heavy_min, int seg,
+                            const unsigned char* __restrict__ active, int B,
+                            int n, int H, int heavy_min, int seg, int nseg,
+                            unsigned char* __restrict__ ws,
                             long long* __restrict__ part_v,
                             int* __restrict__ part_tb,
                             int* __restrict__ part_idx) {
-  extern __shared__ long long wbest_v[];          // [kWarps][H]
+  extern __shared__ long long smem_v[];
+  long long* wbest_v =                            // [kWarps][H]
+      kShared ? smem_v
+              : (long long*)(ws + (size_t)blockIdx.x * kWarps * H * 16);
   int* wbest_tb = (int*)(wbest_v + kWarps * H);   // [kWarps][H]
   int* wbest_idx = wbest_tb + kWarps * H;         // [kWarps][H]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t row = blockIdx.x, off = row * n;
-  const int lo = blockIdx.y * seg, hi = min(n, lo + seg);
-  long long* my_v = wbest_v + warp * H;
-  int* my_tb = wbest_tb + warp * H;
-  int* my_idx = wbest_idx + warp * H;
-  for (int s = lane; s < H; s += 32) {
-    my_v[s] = LLONG_MAX;
-    my_tb[s] = INT_MAX;
-    my_idx[s] = -1;
-  }
-  __syncwarp();
-
-  for (int base = lo; base < hi; base += kThreads * kItems) {
-    unsigned long long x[kItems];
-    int w[kItems], tb[kItems];
-    bool any = false;
-#pragma unroll
-    for (int i = 0; i < kItems; ++i) {
-      const int k = base + i * kThreads + tid;
-      const bool on =
-          k < hi && active[off + k] && weight[off + k] < heavy_min;
-      x[i] = on ? (unsigned long long)h[off + k] : 0ull;
-      w[i] = on ? weight[off + k] : 0;
-      tb[i] = on ? tiebreak[off + k] : INT_MAX;
-      any |= on;
+  const size_t nvb = kShared ? 1 : (size_t)B * nseg;
+  for (size_t vb = kShared ? 0 : blockIdx.x; vb < nvb;
+       vb += kShared ? 1 : gridDim.x) {
+    const size_t row = kShared ? blockIdx.x : vb / nseg;
+    const int g = kShared ? (int)blockIdx.y : (int)(vb % nseg);
+    const size_t off = row * n;
+    const int lo = g * seg, hi = min(n, lo + seg);
+    long long* my_v = wbest_v + warp * H;
+    int* my_tb = wbest_tb + warp * H;
+    int* my_idx = wbest_idx + warp * H;
+    for (int s = lane; s < H; s += 32) {
+      my_v[s] = LLONG_MAX;
+      my_tb[s] = INT_MAX;
+      my_idx[s] = -1;
     }
-    // uniform across the block: a tile with no light k-mer is skipped
-    if (!__syncthreads_or(any)) continue;
-    for (int g = 0; g < H; g += kGroup) {
-      const int own = g + lane;  // the slot this lane keeps in the group
-      long long run_v = LLONG_MAX;
-      int run_tb = INT_MAX, run_idx = -1;
-      if (own < H) {
-        run_v = my_v[own];
-        run_tb = my_tb[own];
-        run_idx = my_idx[own];
+    __syncwarp();
+
+    for (int base = lo; base < hi; base += kThreads * kItems) {
+      unsigned long long x[kItems];
+      int w[kItems], tb[kItems];
+      bool any = false;
+  #pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int k = base + i * kThreads + tid;
+        const bool on =
+            k < hi && active[off + k] && weight[off + k] < heavy_min;
+        x[i] = on ? (unsigned long long)h[off + k] : 0ull;
+        w[i] = on ? weight[off + k] : 0;
+        tb[i] = on ? tiebreak[off + k] : INT_MAX;
+        any |= on;
       }
-      const int gn = min(kGroup, H - g);
-      for (int j = 0; j < gn; ++j) {
-        long long bv = LLONG_MAX;
-        int btb = INT_MAX, bidx = -1;
-#pragma unroll
-        for (int i = 0; i < kItems; ++i) {
-          if (w[i] <= 0) continue;
-          long long wm = LLONG_MAX;
-          for (int t = 0; t < w[i]; ++t) {
-            x[i] = xorshift(x[i]);
-            const long long v = (long long)x[i];
-            wm = v < wm ? v : wm;
+      // uniform across the block: a tile with no light k-mer is skipped
+      if (!__syncthreads_or(any)) continue;
+      for (int g = 0; g < H; g += kGroup) {
+        const int own = g + lane;  // the slot this lane keeps in the group
+        long long run_v = LLONG_MAX;
+        int run_tb = INT_MAX, run_idx = -1;
+        if (own < H) {
+          run_v = my_v[own];
+          run_tb = my_tb[own];
+          run_idx = my_idx[own];
+        }
+        const int gn = min(kGroup, H - g);
+        for (int j = 0; j < gn; ++j) {
+          long long bv = LLONG_MAX;
+          int btb = INT_MAX, bidx = -1;
+  #pragma unroll
+          for (int i = 0; i < kItems; ++i) {
+            if (w[i] <= 0) continue;
+            long long wm = LLONG_MAX;
+            for (int t = 0; t < w[i]; ++t) {
+              x[i] = xorshift(x[i]);
+              const long long v = (long long)x[i];
+              wm = v < wm ? v : wm;
+            }
+            if (lex_less(wm, tb[i], bv, btb)) {
+              bv = wm;
+              btb = tb[i];
+              bidx = base + i * kThreads + tid;
+            }
           }
-          if (lex_less(wm, tb[i], bv, btb)) {
-            bv = wm;
-            btb = tb[i];
-            bidx = base + i * kThreads + tid;
+          warp_argmin(bv, btb, bidx);
+          if (lane == j && lex_less(bv, btb, run_v, run_tb)) {
+            run_v = bv;
+            run_tb = btb;
+            run_idx = bidx;
           }
         }
-        warp_argmin(bv, btb, bidx);
-        if (lane == j && lex_less(bv, btb, run_v, run_tb)) {
-          run_v = bv;
-          run_tb = btb;
-          run_idx = bidx;
+        if (own < H) {
+          my_v[own] = run_v;
+          my_tb[own] = run_tb;
+          my_idx[own] = run_idx;
         }
       }
-      if (own < H) {
-        my_v[own] = run_v;
-        my_tb[own] = run_tb;
-        my_idx[own] = run_idx;
-      }
     }
-  }
-  __syncthreads();
+    __syncthreads();
 
-  const size_t p = (row * gridDim.y + blockIdx.y) * H;
-  for (int s = tid; s < H; s += kThreads) {
-    long long bv = LLONG_MAX;
-    int btb = INT_MAX, bidx = -1;
-    for (int q = 0; q < kWarps; ++q) {
-      const int a = q * H + s;
-      if (lex_less(wbest_v[a], wbest_tb[a], bv, btb)) {
-        bv = wbest_v[a];
-        btb = wbest_tb[a];
-        bidx = wbest_idx[a];
+    const size_t p = (row * nseg + g) * H;
+    for (int s = tid; s < H; s += kThreads) {
+      long long bv = LLONG_MAX;
+      int btb = INT_MAX, bidx = -1;
+      for (int q = 0; q < kWarps; ++q) {
+        const int a = q * H + s;
+        if (lex_less(wbest_v[a], wbest_tb[a], bv, btb)) {
+          bv = wbest_v[a];
+          btb = wbest_tb[a];
+          bidx = wbest_idx[a];
+        }
       }
+      part_v[p + s] = bv;
+      part_tb[p + s] = btb;
+      part_idx[p + s] = bidx;
     }
-    part_v[p + s] = bv;
-    part_tb[p + s] = btb;
-    part_idx[p + s] = bidx;
+    __syncthreads();  // the warps' bests are read before the next reset
   }
 }
 
@@ -421,20 +454,88 @@ cudaError_t allow_smem(K kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The running bests a block keeps: H * 16 bytes (kernel 1, which = 1) or
+// kWarps * H * 16 (the light pass, which = 2).
+size_t best_bytes(int which, int H) {
+  return (size_t)(which == 1 ? 1 : kWarps) * H *
+         (sizeof(long long) + 2 * sizeof(int));
+}
+
+// Do the bests fit the card's opt-in shared memory a block, less the
+// kernel's static part?
+template <typename K>
+cudaError_t fits_shared(K kern, size_t bytes, bool* fits) {
+  *fits = false;
+  int dev, optin;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kern);
+  if (e == cudaSuccess) *fits = bytes + a.sharedSizeBytes <= (size_t)optin;
+  return e;
+}
+
+// info = {0 shared memory or 1 device memory, the bests' bytes a block,
+// resident blocks on the card of the kernel that runs}.
+template <typename KS, typename KD>
+int plan_of(KS shared_kern, KD device_kern, size_t bytes, long long* info) {
+  bool fits;
+  cudaError_t e = fits_shared(shared_kern, bytes, &fits);
+  int dev, sms = 0, blocks = 0;
+  if (e == cudaSuccess && fits) e = allow_smem(shared_kern, bytes);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = fits ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, shared_kern, kThreads, bytes)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, device_kern, kThreads, 0);
+  info[0] = fits ? 0 : 1;
+  info[1] = (long long)bytes;
+  info[2] = (long long)blocks * sms;
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
 
+// Where the running bests of kernel 1 (which = 1) or of the light pass
+// (which = 2) live at H slots: see plan_of.
+int mhap_min_reduce_plan(int which, int H, long long* info) {
+  if (H <= 0 || (which != 1 && which != 2)) return (int)cudaErrorInvalidValue;
+  const size_t bytes = best_bytes(which, H);
+  return which == 1 ? plan_of(min_reduce_kernel<true>,
+                              min_reduce_kernel<false>, bytes, info)
+                    : plan_of(min_reduce_light_kernel<true>,
+                              min_reduce_light_kernel<false>, bytes, info);
+}
+
 // Kernel 1. h: [B, n] int64 hashes; active: [B, n] uint8; out: [B, H]
-// int32.
+// int32.  ws null: the bests in shared memory (they must fit); else
+// `grid` blocks with ws holding grid * H * 16 bytes.
 int mhap_min_reduce(const void* h, const void* active, int B, int n, int H,
-                    void* out, void* stream) {
+                    void* ws, int grid, void* out, void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)H * (sizeof(long long) + 2 * sizeof(int));
-  cudaError_t e = allow_smem(min_reduce_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  min_reduce_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const long long*)h, (const unsigned char*)active, n, H, (int*)out);
+  const size_t bytes = best_bytes(1, H);
+  if (ws == nullptr) {
+    bool fits;
+    cudaError_t e = fits_shared(min_reduce_kernel<true>, bytes, &fits);
+    if (e == cudaSuccess && !fits) e = cudaErrorInvalidValue;
+    if (e == cudaSuccess) e = allow_smem(min_reduce_kernel<true>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    min_reduce_kernel<true><<<B, kThreads, bytes, (cudaStream_t)stream>>>(
+        (const long long*)h, (const unsigned char*)active, B, n, H, nullptr,
+        (int*)out);
+  } else {
+    if (grid < 1) return (int)cudaErrorInvalidValue;
+    min_reduce_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        (const long long*)h, (const unsigned char*)active, B, n, H,
+        (unsigned char*)ws, (int*)out);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -443,22 +544,35 @@ int mhap_min_reduce(const void* h, const void* active, int B, int n, int H,
 // [B, n] int32; active: [B, n] uint8 (or bool); k-mers with w >=
 // heavy_min are heavy.  part_v [B, nseg, H] int64, part_tb and part_idx
 // [B, nseg, H] int32: the light pass's partials over nseg segments of
-// seg k-mers a row.
+// seg k-mers a row.  ws null: the bests in shared memory (they must
+// fit); else `grid` blocks with ws holding grid * kWarps * H * 16 bytes.
 int mhap_weighted_light(const void* h, const void* weight,
                         const void* tiebreak, const void* active, int B,
                         int n, int H, int heavy_min, int seg, int nseg,
-                        void* part_v, void* part_tb, void* part_idx,
-                        void* stream) {
+                        void* ws, int grid, void* part_v, void* part_tb,
+                        void* part_idx, void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaSuccess;
-  const size_t smem =
-      (size_t)kWarps * H * (sizeof(long long) + 2 * sizeof(int));
-  cudaError_t e = allow_smem(min_reduce_light_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  min_reduce_light_kernel<<<dim3(B, nseg), kThreads, smem,
-                            (cudaStream_t)stream>>>(
-      (const long long*)h, (const int*)weight, (const int*)tiebreak,
-      (const unsigned char*)active, n, H, heavy_min, seg,
-      (long long*)part_v, (int*)part_tb, (int*)part_idx);
+  const size_t bytes = best_bytes(2, H);
+  if (ws == nullptr) {
+    bool fits;
+    cudaError_t e = fits_shared(min_reduce_light_kernel<true>, bytes, &fits);
+    if (e == cudaSuccess && !fits) e = cudaErrorInvalidValue;
+    if (e == cudaSuccess) e = allow_smem(min_reduce_light_kernel<true>, bytes);
+    if (e != cudaSuccess) return (int)e;
+    min_reduce_light_kernel<true><<<dim3(B, nseg), kThreads, bytes,
+                                    (cudaStream_t)stream>>>(
+        (const long long*)h, (const int*)weight, (const int*)tiebreak,
+        (const unsigned char*)active, B, n, H, heavy_min, seg, nseg, nullptr,
+        (long long*)part_v, (int*)part_tb, (int*)part_idx);
+  } else {
+    if (grid < 1) return (int)cudaErrorInvalidValue;
+    min_reduce_light_kernel<false><<<grid, kThreads, 0,
+                                     (cudaStream_t)stream>>>(
+        (const long long*)h, (const int*)weight, (const int*)tiebreak,
+        (const unsigned char*)active, B, n, H, heavy_min, seg, nseg,
+        (unsigned char*)ws, (long long*)part_v, (int*)part_tb,
+        (int*)part_idx);
+  }
   return (int)cudaGetLastError();
 }
 

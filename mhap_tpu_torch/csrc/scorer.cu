@@ -61,12 +61,25 @@
 // Compiled with --fmad=false; (int)(overlap * max_shift) is the plain
 // IEEE double product of the Java reference.
 //
-// Shared memory per block, S entries a side: the four [S] row arrays;
-// [floor(4S / 3)] record slots of (A index << 16 | B index); the [S]
-// 16-bit partner indices, whose bytes become the keep flags of
-// optimizeShifts; a 256-bin histogram and scan scratch: 36.4 KB at
-// S = 1536, so 6 blocks (48 warps) fit on an SM.  Records and partners are
-// 16-bit indices: S <= 65535.
+// Scratch per block, S entries a side: the four [S] row arrays;
+// [floor(4S / 3)] record slots of (A index, B index); the [S] partner
+// indices, whose bytes become the keep flags of optimizeShifts; and, in
+// static shared memory, a 256-bin histogram and scan scratch (1,392 B).
+// Two paths share every stage (score_pair):
+//  * shared memory (score_pairs_kernel), 16-bit indices (a record is
+//    one 32-bit word): 36.4 KB at S = 1536, so 6 blocks (48 warps) fit
+//    on an SM.  It runs while S <= 65,535 and the footprint fits the
+//    card's opt-in shared memory a block
+//    (cudaDevAttrMaxSharedMemoryPerBlockOptin, less the static part):
+//    on the H100, S up to about 9,900.
+//  * device memory (score_pairs_wide_kernel) above that: the same
+//    scratch in a workspace the wrapper allocates, one slice a block,
+//    with 32-bit indices (a record is a 64-bit word), so any S up to
+//    kMaxS.  The grid is the card's resident blocks (or fewer), each
+//    looping over pairs.  Asynchronous copies can only write shared
+//    memory, so this path copies its rows with plain loads.
+// kNone and kEmpty (all ones) stay out of the index range, since indices
+// are < S; kMaxS keeps every index and offset within a slice an int.
 
 #include <algorithm>
 #include <cstdint>
@@ -80,9 +93,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMinBlocks = 6;  // per SM, what the shared memory allows
 constexpr int kCols = 16;
 constexpr int IMAX = 0x7FFFFFFF;
-constexpr int kMaxS = 0xFFFF;
-constexpr unsigned short kNone = 0xFFFF;
-constexpr unsigned kEmpty = 0xFFFFFFFFu;  // a record slot not written
+constexpr int kMaxNarrowS = 0xFFFF;  // 16-bit record and partner indices
+constexpr int kMaxS = 0x7FFFFFFF / 8;  // the workspace slice's int offsets
 constexpr int kPer = 9;  // words a thread holds in one round of compaction
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr unsigned long long kNoKey = ~0ull;
@@ -223,12 +235,31 @@ __device__ Seg block_excl_segmin(Seg x, Scratch& s) {
   return seg_op(pre, ex);
 }
 
-__device__ __forceinline__ int rec_a(unsigned r) { return (int)(r >> 16); }
-__device__ __forceinline__ int rec_b(unsigned r) { return (int)(r & 0xFFFFu); }
+// A record packs (A index, B index) into the two halves of a Rec word:
+// 16-bit halves of an unsigned on the shared-memory path, 32-bit halves
+// of an unsigned long long on the device-memory path.  Partners are
+// unsigned short or unsigned.  The all-ones word and index are "none".
+template <typename Rec>
+__device__ __forceinline__ int rec_a(Rec r) {
+  return (int)(r >> (sizeof(Rec) * 4));
+}
+template <typename Rec>
+__device__ __forceinline__ int rec_b(Rec r) {
+  return (int)(r & ((Rec(1) << (sizeof(Rec) * 4)) - 1));
+}
+template <typename Rec>
+__device__ __forceinline__ Rec rec_of(int a, int b) {
+  return (Rec)(unsigned)a << (sizeof(Rec) * 4) | (Rec)(unsigned)b;
+}
+template <typename T>
+__device__ __forceinline__ T none_of() {
+  return (T)~T(0);  // kEmpty for a record slot, kNone for a partner
+}
 
-__device__ __forceinline__ int shift_of(const unsigned* rec, int i,
-                                       const int* ap, const int* bp) {
-  const unsigned r = rec[i];
+template <typename Rec>
+__device__ __forceinline__ int shift_of(const Rec* rec, int i, const int* ap,
+                                        const int* bp) {
+  const Rec r = rec[i];
   return bp[rec_b(r)] - ap[rec_a(r)];
 }
 
@@ -238,7 +269,8 @@ __device__ __forceinline__ int shift_of(const unsigned* rec, int i,
 // pass, from the digit of the highest bit of the shifts' range (block
 // min and max); warp 0 finds the bin holding rank k and clears the
 // histogram for the next pass.
-__device__ int block_median(const unsigned* rec, int cnt, const int* ap,
+template <typename Rec>
+__device__ int block_median(const Rec* rec, int cnt, const int* ap,
                             const int* bp, Scratch& s) {
   if (cnt == 0) return IMAX;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -315,8 +347,9 @@ struct Rows {
 // recordMatchingKmers on one pair of same-hash runs, A's from s1 and B's
 // from s2: native/scorer.h's automaton with both cursors kept inside the
 // runs (equal hashes, so only the window and shift tests remain).
+template <typename Rec>
 __device__ void run_pair(const Rows& R, int s1, int s2, const Pass& q,
-                         unsigned* out) {
+                         Rec* out) {
   const int v = R.ah[s1];
   int i1 = s1, i2 = s2, n = 0;
   while (i1 < R.m1 && i2 < R.m2 && R.ah[i1] == v && R.bh[i2] == v) {
@@ -332,7 +365,7 @@ __device__ void run_pair(const Rows& R, int s1, int s2, const Pass& q,
       } else if (diff < -(long long)q.am) {
         ++i2;
       } else {
-        out[n] = (unsigned)i1 << 16 | (unsigned)i2;
+        out[n] = rec_of<Rec>(i1, i2);
         ++n;
         // extend both cursors over the same-hash run with valid positions
         int e1 = i1;
@@ -344,7 +377,7 @@ __device__ void run_pair(const Rows& R, int s1, int s2, const Pass& q,
                R.bp[e2 + 1] < q.v2u)
           ++e2;
         if (e1 != i1 || e2 != i2) {
-          out[n] = (unsigned)e1 << 16 | (unsigned)e2;
+          out[n] = rec_of<Rec>(e1, e2);
           ++n;
         }
         i1 = e1 + 1;
@@ -363,16 +396,18 @@ __device__ __forceinline__ int slot_of(int s1, int s2) {
 }
 
 // Stable in-place compaction of the words of rec[0, n) that are not
-// kEmpty (and have keep[i], when keep is given) to rec[0, count); returns
+// empty (and have keep[i], when keep is given) to rec[0, count); returns
 // the count to every thread.  Each thread holds a chunk of kPer words in
 // registers (odd, so a warp's threads start on distinct banks) across
 // the prefix sum's barriers, so every read precedes every write.
-__device__ int compact_slots(unsigned* rec, int n, const unsigned char* keep,
+template <typename Rec>
+__device__ int compact_slots(Rec* rec, int n, const unsigned char* keep,
                              Scratch& s) {
+  const Rec kEmpty = none_of<Rec>();
   int total = 0;
   for (int base = 0; base < n; base += kThreads * kPer) {
     const int lo = base + threadIdx.x * kPer;
-    unsigned v[kPer];
+    Rec v[kPer];
     int c = 0;
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
@@ -392,34 +427,37 @@ __device__ int compact_slots(unsigned* rec, int n, const unsigned char* keep,
 }
 
 // One recordMatchingKmers pass: each run pair writes its records to its
-// own slots (slot_of; the others stay kEmpty), then the slots are
+// own slots (slot_of; the others stay empty), then the slots are
 // compacted, which leaves the records in hash order.  Returns the count
 // to every thread.
-__device__ int merge_pass(const Rows& R, const unsigned short* partner,
-                          const Pass& q, unsigned* rec, Scratch& s) {
+template <typename Rec, typename Part>
+__device__ int merge_pass(const Rows& R, const Part* partner, const Pass& q,
+                          Rec* rec, Scratch& s) {
   const int span = 2 * (R.m1 + R.m2) / 3;
-  for (int i = threadIdx.x; i < span; i += kThreads) rec[i] = kEmpty;
+  for (int i = threadIdx.x; i < span; i += kThreads) rec[i] = none_of<Rec>();
   __syncthreads();
   int lo, hi;
   chunk_of(R.m1, lo, hi);
   for (int i = lo; i < hi; ++i)
-    if (partner[i] != kNone)
+    if (partner[i] != none_of<Part>())
       run_pair(R, i, partner[i], q, rec + slot_of(i, partner[i]));
   __syncthreads();
   return compact_slots(rec, span, nullptr, s);
 }
 
-// (|shift - median|, index): the least is the record optimizeShifts keeps
-__device__ __forceinline__ unsigned long long shift_key(const Rows& R,
-                                                        unsigned r, int med,
-                                                        int i) {
+// (|shift - median|, index): the least is the record optimizeShifts
+// keeps.  Shifts and the median lie in (-2^31, 2^31), so |d| < 2^32.
+template <typename Rec>
+__device__ __forceinline__ unsigned long long shift_key(const Rows& R, Rec r,
+                                                        int med, int i) {
   const long long d = (long long)(R.bp[rec_b(r)] - R.ap[rec_a(r)]) - med;
-  return (unsigned long long)(d < 0 ? -d : d) << 24 | (unsigned)i;
+  return (unsigned long long)(d < 0 ? -d : d) << 32 | (unsigned)i;
 }
 
 // optimizeShifts: per run of adjacent equal pos1 keep the first record
 // with the least |shift - median|.  Returns the kept count.
-__device__ int optimize_shifts(const Rows& R, unsigned* rec, int cnt, int med,
+template <typename Rec>
+__device__ int optimize_shifts(const Rows& R, Rec* rec, int cnt, int med,
                                unsigned char* keep, Scratch& s) {
   for (int i = threadIdx.x; i < cnt; i += kThreads) keep[i] = 0;
   int lo, hi;
@@ -433,46 +471,61 @@ __device__ int optimize_shifts(const Rows& R, unsigned* rec, int cnt, int med,
   Seg run = block_excl_segmin(agg, s);  // its barriers order the clearing
   for (int i = lo; i < hi; ++i) {
     run = seg_op(run, Seg{starts(i), shift_key(R, rec[i], med, i)});
-    if (i == cnt - 1 || starts(i + 1)) keep[run.v & 0xFFFFFFu] = 1;
+    if (i == cnt - 1 || starts(i + 1)) keep[run.v & 0xFFFFFFFFu] = 1;
   }
   __syncthreads();
   return compact_slots(rec, cnt, keep, s);
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks) score_pairs_kernel(
-    const int* __restrict__ q_oh, const int* __restrict__ q_op,
-    const int* __restrict__ q_om, const int* __restrict__ q_nk,
-    const int* __restrict__ c_oh, const int* __restrict__ c_op,
-    const int* __restrict__ c_om, const int* __restrict__ c_nk,
-    const int* __restrict__ qi, const int* __restrict__ ci, int S, int R_cap,
-    double max_shift, int* __restrict__ out) {
-  extern __shared__ int smem[];
-  __shared__ Scratch s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t t = blockIdx.x;
-  const size_t qa = (size_t)qi[t], cb = (size_t)ci[t];
-  const int nk1 = q_nk[qa], nk2 = c_nk[cb];
-  Rows R{smem, smem + S, smem + 2 * S, smem + 3 * S, q_om[qa], c_om[cb]};
-  unsigned* rec = (unsigned*)(smem + 4 * S);                  // [R_cap]
-  unsigned short* partner = (unsigned short*)(rec + R_cap);   // [S]
-  unsigned char* keep = (unsigned char*)partner;  // after pass 2
+// The store columns and pair indices of one launch.
+struct Pairs {
+  const int *q_oh, *q_op, *q_om, *q_nk, *c_oh, *c_op, *c_om, *c_nk, *qi, *ci;
+};
 
-  const int* gah = q_oh + qa * S;
-  const int* gap = q_op + qa * S;
-  const int* gbh = c_oh + cb * S;
-  const int* gbp = c_op + cb * S;
-  // asynchronous copies, all in flight at once
-  for (int i = tid; i < R.m1; i += kThreads) {
-    __pipeline_memcpy_async(R.ah + i, gah + i, sizeof(int));
-    __pipeline_memcpy_async(R.ap + i, gap + i, sizeof(int));
+// Scores pair t with the block's scratch at `scratch` ([4S] ints of rows,
+// then [R_cap] records, then [S] partners): shared memory, whose rows
+// arrive by asynchronous copies (kAsync), or a device-memory slice, whose
+// rows arrive by plain loads.
+template <typename Rec, typename Part, bool kAsync>
+__device__ void score_pair(const Pairs& P, size_t t, int S, int R_cap,
+                           double max_shift, int* scratch, Scratch& s,
+                           int* __restrict__ out) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t qa = (size_t)P.qi[t], cb = (size_t)P.ci[t];
+  const int nk1 = P.q_nk[qa], nk2 = P.c_nk[cb];
+  Rows R{scratch,         scratch + S,     scratch + 2 * S,
+         scratch + 3 * S, P.q_om[qa],      P.c_om[cb]};
+  Rec* rec = (Rec*)(scratch + 4 * S);      // [R_cap]
+  Part* partner = (Part*)(rec + R_cap);    // [S]
+  unsigned char* keep = (unsigned char*)partner;  // after pass 2
+  const Part kNone = none_of<Part>();
+
+  const int* gah = P.q_oh + qa * S;
+  const int* gap = P.q_op + qa * S;
+  const int* gbh = P.c_oh + cb * S;
+  const int* gbp = P.c_op + cb * S;
+  if (kAsync) {  // asynchronous copies, all in flight at once
+    for (int i = tid; i < R.m1; i += kThreads) {
+      __pipeline_memcpy_async(R.ah + i, gah + i, sizeof(int));
+      __pipeline_memcpy_async(R.ap + i, gap + i, sizeof(int));
+    }
+    for (int i = tid; i < R.m2; i += kThreads) {
+      __pipeline_memcpy_async(R.bh + i, gbh + i, sizeof(int));
+      __pipeline_memcpy_async(R.bp + i, gbp + i, sizeof(int));
+    }
+    __pipeline_commit();
+  } else {
+    for (int i = tid; i < R.m1; i += kThreads) {
+      R.ah[i] = gah[i];
+      R.ap[i] = gap[i];
+    }
+    for (int i = tid; i < R.m2; i += kThreads) {
+      R.bh[i] = gbh[i];
+      R.bp[i] = gbp[i];
+    }
   }
-  for (int i = tid; i < R.m2; i += kThreads) {
-    __pipeline_memcpy_async(R.bh + i, gbh + i, sizeof(int));
-    __pipeline_memcpy_async(R.bp + i, gbp + i, sizeof(int));
-  }
-  __pipeline_commit();
   for (int i = tid; i < 256; i += kThreads) s.hist[i] = 0;
-  __pipeline_wait_prior(0);
+  if (kAsync) __pipeline_wait_prior(0);
   __syncthreads();
 
   // ---- run pairs: a merge path over A and B, A first on equal hashes,
@@ -566,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) score_pairs_kernel(
   // in-window flags as ballot words, their prefix counts, then the
   // in-window hashes f1, f2 compacted into the position arrays
   const int W = (max(R.m1, R.m2) + 31) / 32;
-  unsigned* wa = rec;
+  unsigned* wa = (unsigned*)rec;
   unsigned* wb = wa + W;
   int* pa = (int*)(wb + W);
   int* pb = pa + W;
@@ -655,11 +708,80 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) score_pairs_kernel(
   }
 }
 
-size_t smem_bytes(int S, int* R_cap) {
-  // records, and the Jaccard's 4 words per 32 entries, share [R_cap]
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    score_pairs_kernel(Pairs P, int S, int R_cap, double max_shift,
+                       int* __restrict__ out) {
+  extern __shared__ int smem[];
+  __shared__ Scratch s;
+  score_pair<unsigned, unsigned short, true>(P, blockIdx.x, S, R_cap,
+                                             max_shift, smem, s, out);
+}
+
+// The device-memory path: block b keeps its scratch at ws + b * footprint
+// and scores pairs b, b + gridDim.x, ...
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    score_pairs_wide_kernel(Pairs P, int T, int S, int R_cap,
+                            size_t footprint, double max_shift,
+                            unsigned char* __restrict__ ws,
+                            int* __restrict__ out) {
+  __shared__ Scratch s;
+  int* scratch = (int*)(ws + blockIdx.x * footprint);
+  for (size_t t = blockIdx.x; t < (size_t)T; t += gridDim.x) {
+    score_pair<unsigned long long, unsigned, false>(P, t, S, R_cap,
+                                                     max_shift, scratch, s,
+                                                     out);
+    __syncthreads();  // this pair's reads precede the next one's writes
+  }
+}
+
+// Scratch bytes a block at sketch size S, records of rec_bytes and
+// partners of part_bytes each.  Records, and the Jaccard's 4 words per 32
+// entries, share [R_cap]; the keep flags reuse the partners' bytes.
+size_t footprint(int S, size_t rec_bytes, size_t part_bytes, int* R_cap) {
   *R_cap = std::max(4 * S / 3, 4 * ((S + 31) / 32));
-  const size_t flags = (size_t)std::max(2 * S, *R_cap);  // partner / keep
-  return (size_t)(4 * S + *R_cap) * sizeof(int) + (flags + 3) / 4 * 4;
+  const size_t flags = std::max(part_bytes * S, (size_t)*R_cap);
+  return (size_t)4 * S * sizeof(int) + (size_t)*R_cap * rec_bytes +
+         (flags + 3) / 4 * 4;
+}
+
+size_t smem_bytes(int S, int* R_cap) {
+  return footprint(S, sizeof(unsigned), sizeof(unsigned short), R_cap);
+}
+
+// A device-memory slice, rounded so that every slice stays aligned.
+size_t wide_bytes(int S, int* R_cap) {
+  const size_t b = footprint(S, sizeof(unsigned long long), sizeof(unsigned),
+                             R_cap);
+  return (b + 255) / 256 * 256;
+}
+
+// Does the shared-memory kernel take S on this card?  It needs 16-bit
+// indices and its footprint within the opt-in limit less its static part.
+cudaError_t fits_shared(int S, bool* fits) {
+  *fits = false;
+  if (S > kMaxNarrowS) return cudaSuccess;
+  int dev, optin;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, score_pairs_kernel);
+  int R_cap;
+  if (e == cudaSuccess)
+    *fits = smem_bytes(S, &R_cap) + a.sharedSizeBytes <= (size_t)optin;
+  return e;
+}
+
+cudaError_t prepare_shared(size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(
+      score_pairs_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(score_pairs_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  return e;
 }
 
 }  // namespace
@@ -668,58 +790,91 @@ extern "C" {
 
 // Store columns: oh/op [N, S] int32, om/nk [N] int32 for the query (q_*)
 // and candidate (c_*) stores; qi/ci [T] int32 row indices; out [T, 16].
+// ws null: the shared-memory kernel, one block a pair (S must fit it, see
+// mhap_score_pairs_plan).  Otherwise the device-memory kernel on `grid`
+// blocks, ws holding grid * (mhap_score_pairs_plan's info[1]) bytes.
 int mhap_score_pairs(const void* q_oh, const void* q_op, const void* q_om,
                      const void* q_nk, const void* c_oh, const void* c_op,
                      const void* c_om, const void* c_nk, const void* qi,
                      const void* ci, int T, int S, double max_shift,
-                     void* out, void* stream) {
+                     void* ws, int grid, void* out, void* stream) {
   if (T <= 0) return (int)cudaSuccess;
   if (S < 1 || S > kMaxS) return (int)cudaErrorInvalidValue;
+  const Pairs P{(const int*)q_oh, (const int*)q_op, (const int*)q_om,
+                (const int*)q_nk, (const int*)c_oh, (const int*)c_op,
+                (const int*)c_om, (const int*)c_nk, (const int*)qi,
+                (const int*)ci};
   int R_cap;
-  const size_t smem = smem_bytes(S, &R_cap);
-  cudaError_t e = cudaFuncSetAttribute(
-      score_pairs_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(score_pairs_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  score_pairs_kernel<<<T, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int*)q_oh, (const int*)q_op, (const int*)q_om,
-      (const int*)q_nk, (const int*)c_oh, (const int*)c_op,
-      (const int*)c_om, (const int*)c_nk, (const int*)qi, (const int*)ci, S,
-      R_cap, max_shift, (int*)out);
+  if (ws == nullptr) {
+    bool fits;
+    cudaError_t e = fits_shared(S, &fits);
+    if (e != cudaSuccess) return (int)e;
+    if (!fits) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(S, &R_cap);
+    e = prepare_shared(smem);
+    if (e != cudaSuccess) return (int)e;
+    score_pairs_kernel<<<T, kThreads, smem, (cudaStream_t)stream>>>(
+        P, S, R_cap, max_shift, (int*)out);
+  } else {
+    if (grid < 1) return (int)cudaErrorInvalidValue;
+    const size_t bytes = wide_bytes(S, &R_cap);
+    score_pairs_wide_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        P, T, S, R_cap, bytes, max_shift, (unsigned char*)ws, (int*)out);
+  }
   return (int)cudaGetLastError();
 }
 
-// The kernel's resources at sketch size S: info = {registers a thread,
-// static shared bytes, dynamic shared bytes, local (spill) bytes a
-// thread, resident blocks per SM}.
+// The path the card takes at sketch size S: info = {0 shared memory or 1
+// device memory, the scratch bytes a block (dynamic shared memory, or the
+// workspace slice), the kernel's resident blocks on the card}.
+int mhap_score_pairs_plan(int S, long long* info) {
+  if (S < 1 || S > kMaxS) return (int)cudaErrorInvalidValue;
+  bool fits;
+  cudaError_t e = fits_shared(S, &fits);
+  int R_cap, dev, sms = 0, blocks = 0;
+  const size_t bytes = fits ? smem_bytes(S, &R_cap) : wide_bytes(S, &R_cap);
+  if (e == cudaSuccess && fits) e = prepare_shared(bytes);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = fits ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, score_pairs_kernel, kThreads, bytes)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, score_pairs_wide_kernel, kThreads, 0);
+  info[0] = fits ? 0 : 1;
+  info[1] = (long long)bytes;
+  info[2] = (long long)blocks * sms;
+  return (int)e;
+}
+
+// The resources of the kernel that takes sketch size S: info =
+// {registers a thread, static shared bytes, dynamic shared bytes, local
+// (spill) bytes a thread, resident blocks per SM}.
 int mhap_score_pairs_occupancy(int S, int* info) {
   if (S < 1 || S > kMaxS) return (int)cudaErrorInvalidValue;
+  bool fits;
+  cudaError_t e = fits_shared(S, &fits);
   int R_cap;
-  const size_t smem = smem_bytes(S, &R_cap);
+  const size_t smem = fits ? smem_bytes(S, &R_cap) : 0;
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, score_pairs_kernel);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(score_pairs_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(score_pairs_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+    e = fits ? cudaFuncGetAttributes(&a, score_pairs_kernel)
+             : cudaFuncGetAttributes(&a, score_pairs_wide_kernel);
+  if (e == cudaSuccess && fits) e = prepare_shared(smem);
   int blocks = 0;
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, score_pairs_kernel, kThreads, smem);
+    e = fits ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, score_pairs_kernel, kThreads, smem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &blocks, score_pairs_wide_kernel, kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
   info[0] = a.numRegs;
   info[1] = (int)a.sharedSizeBytes;
   info[2] = (int)smem;
   info[3] = (int)a.localSizeBytes;
   info[4] = blocks;
-  return (int)e;
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

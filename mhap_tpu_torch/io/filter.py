@@ -1,4 +1,4 @@
-"""Reader of MHAP's k-mer frequency file (``-f``) at ``--supress-noise 0``.
+"""Reader of MHAP's k-mer frequency file (``-f``).
 
 Parity target: sketch/FrequencyCounts.java:100-186, 290-311 (the JAX
 package's counterpart is mhap_tpu/oracle/filter.py).  The first line is
@@ -14,19 +14,25 @@ Each file k-mer's scaled idf is computed once, on the host, with scalar
 ``math.log`` in float64 (Java double), so the tf-idf weights built from
 it (pipeline/freqfilter.py) are bit-equal to the reference's.
 
-``remove_unique`` 1 and 2 (``--supress-noise 1/2``) need the set of all
-file k-mers (or the reference's Guava bloom filter); they are not ported
-yet and raise ``NotImplementedError``.
+``remove_unique`` 1 and 2 (``--supress-noise 1/2``) also keep the set of
+every k-mer line of the file, whatever its fraction, keyed the same way
+(FrequencyCounts.java:137, :189-193): mode 1 drops a k-mer outside it,
+mode 2 gives such a k-mer the scaled idf 1.0.  The set is exact (a sorted
+key tensor) by default; ``use_bloom=True`` builds the reference's Guava
+``BloomFilter<Long>`` instead (``GuavaBloomFilter``, bit-compatible, sized
+from the file's first line at 1e-5 false positives), as the CLI does for
+runs comparable with the reference jar.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
 import torch
 
-from ..ops.murmur3 import kmer_hashes_128
+from ..ops.murmur3 import kmer_hashes_128, murmur3_128_long
 
 # utils/Utils.java rc(): IUPAC complement, unknown characters unchanged
 _COMPLEMENT = dict(zip("ABCDGHKMNRSTVWY", "TVGHCDMKNYSABWR"))
@@ -62,43 +68,99 @@ def kmer_keys(kmers: list[str], canonical: bool) -> np.ndarray:
     return keys
 
 
+class GuavaBloomFilter:
+    """Guava's ``BloomFilter.create(longFunnel, n, fpp)`` with strategy
+    MURMUR128_MITZ_64, bit for bit (mhap_tpu/oracle/filter.py
+    GuavaBloomFilter): numBits = (long)(-n ln(fpp) / ln(2)^2), held in
+    64-bit words; numHashFunctions = max(1, round(numBits / n * ln 2)).
+    A key's probes are ``(h1 + i * h2) & Long.MAX_VALUE mod bitSize`` for
+    i < numHashFunctions, (h1, h2) the murmur3_128 of its 8 little-endian
+    bytes (ops/murmur3.murmur3_128_long).  ``words`` is an int64 tensor;
+    ``to`` copies the filter to a device, where ``contains`` runs as
+    tensor gathers."""
+
+    def __init__(self, expected_insertions: int, fpp: float = 1e-5):
+        n = max(int(expected_insertions), 1)
+        num_bits = max(int(-n * math.log(fpp) / (math.log(2) ** 2)), 1)
+        self.bit_size = ((num_bits + 63) // 64) * 64
+        self.num_hashes = max(1, round(num_bits / n * math.log(2)))
+        self.words = torch.zeros(self.bit_size // 64, dtype=torch.int64)
+
+    def to(self, device) -> "GuavaBloomFilter":
+        out = copy.copy(self)
+        out.words = self.words.to(device)
+        return out
+
+    def _probes(self, keys: torch.Tensor):
+        """The probed bit index of every key, one tensor per hash."""
+        h1, h2 = murmur3_128_long(keys)
+        comb = h1
+        for _ in range(self.num_hashes):
+            yield (comb & ((1 << 63) - 1)) % self.bit_size
+            comb = comb + h2
+
+    def add(self, keys: torch.Tensor) -> None:
+        """Sets the probed bits of int64 keys (host tensors)."""
+        words = self.words.numpy().view(np.uint64)
+        for p in self._probes(keys.reshape(-1)):
+            p = p.numpy()
+            np.bitwise_or.at(words, p >> 6,
+                             np.left_shift(np.uint64(1),
+                                           (p & 63).astype(np.uint64)))
+
+    def contains(self, keys: torch.Tensor) -> torch.Tensor:
+        """mightContain of each int64 key, on the words' device."""
+        out = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+        for p in self._probes(keys):
+            out &= ((self.words[p >> 6] >> (p & 63)) & 1).bool()
+        return out
+
+
 class FrequencyCounts:
     """The file k-mers of a filter file as host tensors: ``keys`` int64
     [K] sorted ascending, ``sidf`` float64 [K] the scaled idf of each.
-    K-mers absent from the file take ``range`` (scaledIdf's default)."""
+    K-mers absent from the file take ``range`` (scaledIdf's default).
+    ``valid``: None at remove_unique 0; else the set of every k-mer line,
+    a ``GuavaBloomFilter`` (use_bloom) or a sorted int64 key tensor."""
 
     def __init__(self, lines, filter_cutoff: float, offset: float,
                  remove_unique: int, no_tf: bool, range_: float,
-                 do_reverse_compliment: bool):
+                 do_reverse_compliment: bool, use_bloom: bool = False):
         if remove_unique < 0 or remove_unique > 2:
             raise ValueError(f"Unknown removeUnique option {remove_unique}.")
         if offset < 0.0 or offset >= 1.0:
             raise ValueError("Offset can only be between 0 and 1.0.")
-        if remove_unique != 0:
-            raise NotImplementedError(
-                f"--supress-noise {remove_unique} needs the set of all "
-                "filter-file k-mers (a Guava bloom filter in the reference) "
-                "and is not ported to mhap_tpu_torch yet; only "
-                "--supress-noise 0 is")
         self.range = range_
         self.no_tf = no_tf
+        self.remove_unique = remove_unique
         it = iter(lines)
         first = next(it, None)
+        size_bloom = 1
         if first is not None:  # header: bloom size, repeat count
             parts = first.strip().split()
-            int(parts[0]), int(parts[1])
-        kmers, fractions = [], []
+            size_bloom, _ = int(parts[0]), int(parts[1])
+        kmers, listed, fractions = [], [], []
         max_value = -math.inf
         for line in it:
             parts = line.split(None, 2)
-            if len(parts) < 2:
+            if not parts:
                 continue
-            percent = float(parts[1])
-            if percent >= filter_cutoff:
-                max_value = max(max_value, percent)
+            percent = float(parts[1]) if len(parts) >= 2 else None
+            is_file_kmer = percent is not None and percent >= filter_cutoff
+            if remove_unique or is_file_kmer:  # hash only what is kept
                 kmers.append(parts[0])
+            if is_file_kmer:
+                max_value = max(max_value, percent)
+                listed.append(len(kmers) - 1)
                 fractions.append(percent)
-        keys = kmer_keys(kmers, do_reverse_compliment)
+        all_keys = kmer_keys(kmers, do_reverse_compliment)
+        self.valid = None
+        if remove_unique and use_bloom:
+            self.valid = GuavaBloomFilter(size_bloom)
+            self.valid.add(torch.from_numpy(all_keys))
+        elif remove_unique:
+            self.valid = torch.unique(torch.from_numpy(all_keys))
+        keys = all_keys[np.asarray(listed, np.int64)]
         # a key listed again keeps its last fraction (a map put)
         uniq, last_rev = np.unique(keys[::-1], return_index=True)
         last = len(keys) - 1 - last_rev

@@ -8,7 +8,10 @@ edited source rebuilds and an unchanged one loads at once.  Nothing here
 runs at import time: the first CUDA launch calls ``kernels()``.
 
 Every C entry launches on the stream it is given and returns
-``cudaGetLastError()``; ``check()`` raises if that is not 0.
+``cudaGetLastError()``; ``check()`` raises if that is not 0.  A kernel
+whose scratch can outgrow shared memory has a plan entry: ``plan()``
+reads which path a size takes on the card, ``workspace()`` allocates the
+device-memory path's scratch (kernels allocate nothing).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import tempfile
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -35,13 +40,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures, all returning the launch's cudaError_t as int
 SIGNATURES = {
-    "mhap_min_reduce": [_P, _P, _I, _I, _I, _P, _P],
-    "mhap_weighted_light": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P],
+    "mhap_min_reduce": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
+    "mhap_min_reduce_plan": [_I, _I, _P],
+    "mhap_weighted_light": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                            _P, _P, _P, _P],
     "mhap_weighted_heavy_fold": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
                                  _P, _P, _P, _P, _P, _P],
     "mhap_score_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                         ctypes.c_double, _P, _P],
+                         ctypes.c_double, _P, _I, _P, _P],
+    "mhap_score_pairs_plan": [_I, _P],
     "mhap_score_pairs_occupancy": [_I, _P],
     "mhap_merge2": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
@@ -137,3 +144,36 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = kernels().mhap_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+WORKSPACE_BYTES = 1 << 30  # a device-memory path's scratch, at most
+_plans: dict = {}
+
+
+def plan(entry: str, *args, device=None) -> dict:
+    """The C plan entry ``entry(*args, info)`` on the card: ``path``
+    "shared" or "device" (memory of the kernel's scratch), ``bytes`` of
+    scratch a block and ``resident_blocks`` of that kernel on the card."""
+    dev = torch.device(device or "cuda")
+    key = (dev, entry, args)
+    if key not in _plans:
+        with torch.cuda.device(dev):
+            info = (ctypes.c_longlong * 3)()
+            check(getattr(kernels(), entry)(*args, ctypes.addressof(info)),
+                  f"{entry}{args}")
+        _plans[key] = dict(path=("shared", "device")[info[0]],
+                           bytes=info[1], resident_blocks=info[2])
+    return _plans[key]
+
+
+def workspace(p: dict, blocks: int, device):
+    """(scratch tensor or None, grid) of a launch of ``blocks`` blocks on
+    plan ``p``: none on the shared path; else one slice a block for a
+    grid of the card's resident blocks, or fewer, within
+    WORKSPACE_BYTES."""
+    if p["path"] == "shared":
+        return None, 0
+    grid = max(1, min(blocks, p["resident_blocks"],
+                      WORKSPACE_BYTES // p["bytes"]))
+    return torch.empty(grid * p["bytes"], dtype=torch.uint8,
+                       device=device), grid

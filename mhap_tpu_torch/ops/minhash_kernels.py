@@ -11,6 +11,13 @@ Kernel 2 runs as three passes (light, heavy, fold; the source note of
 ``csrc/minhash.cu``) over a plan made here in plain PyTorch
 (``light_segments``, ``heavy_kmers``, ``heavy_unit_slots``), which the
 CPU tests reach too.
+
+Kernel 1 keeps H * 16 bytes of running bests a block, and kernel 2's
+light pass 8 * H * 16: in shared memory while that fits the card's opt-in
+limit a block (on the H100, H up to 14,272 and 1,816), else in a
+device-memory workspace allocated here, one slice for each of a grid of
+resident blocks (``_build.workspace``; ``plan`` says which path H
+takes).  Any H runs.
 """
 
 from __future__ import annotations
@@ -85,6 +92,14 @@ def _device_consts(dev: torch.device):
     return _consts[dev]
 
 
+def plan(which: int, num_hashes: int, device=None) -> dict:
+    """Where the running bests of kernel 1 (which = 1) or of kernel 2's
+    light pass (which = 2) live at num_hashes slots on the card
+    (``_build.plan``)."""
+    return _build.plan("mhap_min_reduce_plan", which, num_hashes,
+                       device=device)
+
+
 def min_reduce_w1(h: torch.Tensor, active: torch.Tensor,
                   num_hashes: int) -> torch.Tensor:
     """Weight-1 min-reduce: h [B, n] int64, active [B, n] bool ->
@@ -98,8 +113,10 @@ def min_reduce_w1(h: torch.Tensor, active: torch.Tensor,
     _check_rows("h", h, torch.int64, (B, n), h.device)
     _check_rows("active", active, torch.uint8, (B, n), h.device)
     out = torch.empty((B, num_hashes), dtype=torch.int32, device=h.device)
+    ws, grid = _build.workspace(plan(1, num_hashes, h.device), B, h.device)
     err = _build.kernels().mhap_min_reduce(
-        h.data_ptr(), active.data_ptr(), B, n, num_hashes, out.data_ptr(),
+        h.data_ptr(), active.data_ptr(), B, n, num_hashes,
+        None if ws is None else ws.data_ptr(), grid, out.data_ptr(),
         torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "min_reduce_w1")
     min_reduce_w1.launches += 1
@@ -143,12 +160,14 @@ def weighted_min_reduce(h: torch.Tensor, weight: torch.Tensor,
     part_tb = torch.empty((B, nseg, H), dtype=torch.int32, device=dev)
     part_idx = torch.empty((B, nseg, H), dtype=torch.int32, device=dev)
     out = torch.empty((B, H), dtype=torch.int32, device=dev)
+    ws, grid = _build.workspace(plan(2, H, dev), B * nseg, dev)
     lib = _build.kernels()
     main = torch.cuda.current_stream(dev)
     side.wait_stream(main)
     err = lib.mhap_weighted_light(
         h.data_ptr(), weight.data_ptr(), tiebreak.data_ptr(),
-        active.data_ptr(), B, n, H, heavy_min, seg, nseg, part_v.data_ptr(),
+        active.data_ptr(), B, n, H, heavy_min, seg, nseg,
+        None if ws is None else ws.data_ptr(), grid, part_v.data_ptr(),
         part_tb.data_ptr(), part_idx.data_ptr(), main.cuda_stream)
     _build.check(err, "weighted_min_reduce (light pass)")
     # the heavy k-mers are listed on a side stream, so that the host's wait

@@ -7,7 +7,11 @@ substrings (reference sketch/HashUtils.java):
 * ``kmer_hashes_128(seq, k)`` -> h1 ("asLong") of murmur3 x64_128 per
   window, one int64 per window (two's-complement bit pattern of the Java
   ``long``);
-* ``kmer_hashes_32(seq, k)``  -> murmur3 x86_32 per window, int32.
+* ``kmer_hashes_32(seq, k)``  -> murmur3 x86_32 per window, int32;
+* ``murmur3_128_long(x)`` -> both halves (h1, h2) of murmur3 x64_128 of
+  int64 values, each taken as its 8 little-endian bytes (guava's
+  ``Hasher.putLong``): the funnel of the Guava bloom filter
+  (io/filter.py).
 
 Input is a [B, L] uint8 tensor of upper-cased ASCII codes; every window is
 hashed (the caller masks windows past a read's end).  Each char is the
@@ -94,6 +98,23 @@ def kmer_hashes_128(seq: torch.Tensor, k: int, seed: int = 0) -> torch.Tensor:
     h1 = _fmix64(h1)
     h2 = _fmix64(h2)
     return h1 + h2
+
+
+def murmur3_128_long(x: torch.Tensor, seed: int = 0):
+    """Guava murmur3_128 of each int64 value of x as 8 little-endian
+    bytes: (h1, h2), the two int64 halves of the 128-bit hash (HashCode
+    bytes 0-7 and 8-15).  Eight bytes make no full 16-byte block, so the
+    value is the tail's k1."""
+    s = seed - (1 << 32) if seed & 0x80000000 else seed & _M32
+    k1 = _rotl64(x.to(I64) * _C1_128, 31) * _C2_128
+    h1 = (k1 ^ s) ^ 8
+    h2 = torch.full_like(h1, s ^ 8)
+    h1 = h1 + h2
+    h2 = h2 + h1
+    h1 = _fmix64(h1)
+    h2 = _fmix64(h2)
+    h1 = h1 + h2
+    return h1, h2 + h1
 
 
 def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:

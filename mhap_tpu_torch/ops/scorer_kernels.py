@@ -8,11 +8,16 @@ equal hashes in the query row with the candidate's; each recordMatching
 pass runs one automaton a run pair, writing to slots that a compaction
 packs in hash order; medians by radix select; optimizeShifts as a
 segmented arg-min; block reductions for the UMVU edges; the windowed
-Jaccard from ranks and a prefix sum.  Its shared memory (36.4 KB at
-S = 1536; S <= 65,535) lets 6 blocks share an SM; ``occupancy`` reports
-what the card gives.  For CPU tensors the wrapper gathers the rows and
-runs the plain version ``ops/scorer.score_pairs_ref``; for CUDA tensors
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+Jaccard from ranks and a prefix sum.  Its scratch lives in shared memory
+(36.4 KB at S = 1536, so 6 blocks share an SM) while S <= 65,535 and the
+footprint fits the card's opt-in limit a block (S up to about 9,900 on
+the H100); above that, in a device-memory workspace allocated here, one
+slice for each of a grid of resident blocks that loop over the pairs
+(``_build.workspace``), with 32-bit indices, for any S up to 268,435,455 (``plan`` says which
+path S takes; ``occupancy`` reports what the card gives).  For CPU
+tensors the wrapper gathers the rows and runs the plain version
+``ops/scorer.score_pairs_ref``; for CUDA tensors it launches the kernel
+or raises.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -62,11 +67,13 @@ def score_pairs(q_cols, c_cols, qi: torch.Tensor, ci: torch.Tensor,
     out = torch.empty((T, N_COLS), dtype=torch.int32, device=dev)
     if T == 0:
         return out
+    ws, grid = _build.workspace(plan(S, dev), T, dev)
     err = _build.kernels().mhap_score_pairs(
         qoh.data_ptr(), qop.data_ptr(), qom.data_ptr(), qnk.data_ptr(),
         coh.data_ptr(), cop.data_ptr(), com.data_ptr(), cnk.data_ptr(),
         qi.data_ptr(), ci.data_ptr(), T, S, float(max_shift),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        None if ws is None else ws.data_ptr(), grid, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "score_pairs")
     score_pairs.launches += 1
     return out
@@ -74,11 +81,16 @@ def score_pairs(q_cols, c_cols, qi: torch.Tensor, ci: torch.Tensor,
 
 score_pairs.launches = 0
 
+def plan(S: int, device=None) -> dict:
+    """Where the kernel's scratch lives at sketch size S on the card
+    (``_build.plan``: dynamic shared memory, or a workspace slice)."""
+    return _build.plan("mhap_score_pairs_plan", S, device=device)
+
 
 def occupancy(S: int) -> dict:
-    """The kernel's registers a thread, static / dynamic shared bytes a
-    block, local (spill) bytes a thread and resident blocks per SM at
-    sketch size S, as the CUDA runtime reports them."""
+    """The registers a thread, static / dynamic shared bytes a block,
+    local (spill) bytes a thread and resident blocks per SM of the kernel
+    that takes sketch size S, as the CUDA runtime reports them."""
     info = (ctypes.c_int * 5)()
     _build.check(_build.kernels().mhap_score_pairs_occupancy(
         S, ctypes.addressof(info)), "score_pairs occupancy")

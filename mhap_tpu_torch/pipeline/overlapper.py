@@ -10,7 +10,9 @@ mhap_tpu/pipeline/overlapper.py, ``TpuOverlapper``).
        repeated k-mer through kernel 1 (min_reduce_w1) and rows with one
        through sort_and_count and kernel 2 (weighted_min_reduce) at their
        exact counts; with a k-mer filter (pipeline/freqfilter.py), every
-       row through kernel 2 at its tf-idf or legacy weights
+       row through kernel 2 at its tf-idf or legacy weights; under
+       --supress-noise 1 the k-mers outside the filter file are dropped
+       first, at every repeat_weight
     -> murmur3_32 12-mers + bottom-k sort (ops/bottomk.py)
   -> SketchStore: columns stay on the device
   -> exact sorted-postings vote (index/postings.py) + suppression rules
@@ -136,14 +138,19 @@ class TorchOverlapper:
         if cfg:
             self.cfg.update(cfg)
         self.device = resolve_device(device)
+        self.kmer_filter = kmer_filter
         if kmer_filter is not None and kmer_filter.device != self.device:
             raise ValueError(f"kmer_filter lives on {kmer_filter.device}, "
                              f"the overlapper on {self.device}")
         rw = float(self.cfg["repeat_weight"])
         # repeat_weight >= 1 weights by count: the plain path
-        # (mhap_tpu/pipeline/overlapper.py:873-876)
+        # (mhap_tpu/pipeline/overlapper.py:873-876), after mode 1's keep
+        # mask, which holds at every weight mode (the JAX package's host
+        # flow, :869-876)
         self._weights = (partial(kmer_filter.weights, repeat_weight=rw)
                          if kmer_filter is not None and rw < 1.0 else None)
+        self._keep = (kmer_filter.member if kmer_filter is not None
+                      and kmer_filter.remove_unique == 1 else None)
         self.slow_pair_count = 0  # lanes the scorer escalated: always 0
         self.stats = dict(matches_processed=0, sequences_searched=0,
                           elements_processed=0, sequences_hit=0,
@@ -165,6 +172,8 @@ class TorchOverlapper:
         R, W = codes.shape
         valid1 = torch.arange(W - k1 + 1, device=dev)[None, :] < ln - k1 + 1
         h = _murmur3.kmer_hashes_128(seq, k1)
+        if self._keep is not None:  # keepKmer: dropped before counting
+            valid1 = valid1 & self._keep(h)
         if self._weights is not None:
             mh, n_active = _minhash.minhash_filtered_rows(
                 h, valid1, self._weights, H, weighted_min_reduce)
@@ -195,8 +204,9 @@ class TorchOverlapper:
         min_olap_length are dropped and ids keep counting; a forward strand
         with no k-mer in its MinHash drops the read, such an rc strand
         drops the rc entry (overlapper.py:897-921).  Under a filter that
-        counts only k-mers of weight > 0 (a legacy run drops a read whose
-        k-mers are all file k-mers)."""
+        counts only kept k-mers of weight > 0 (a legacy run drops a read
+        whose k-mers are all file k-mers, a mode-1 run one with no k-mer
+        in the file)."""
         cfg = self.cfg
         k1, k2 = cfg["kmer_size"], cfg["ordered_kmer_size"]
         H, S = cfg["num_hashes"], cfg["ordered_sketch_size"]

@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Times kernels 1-3 of one tree's ``mhap_tpu_torch`` at the main path's
+shapes on the GPU, so that two trees can be compared in one call:
+
+    python3 scripts/kernel_ab.py PARENT_TREE    # then CHANGE, CHANGE, PARENT
+
+Imports ``mhap_tpu_torch`` from the tree given (its kernels build into
+that tree's ``mhap_tpu_torch/build``) and the inputs' recipes (``bench``)
+from this checkout.  Shapes: kernel 1 on the primary workload's first
+512 reads [512, 2,885] at H = 512; kernel 2 on chip_smoke.py phase 2's
+repeat rows [65, 2,289] and on the first filtered2k chunk [1,024, 2,929]
+at its tf-idf weights; kernel 3 on all of filtered2k's candidate pairs
+at S = 1,536.  CUDA events, median of 5 after a warm-up.  Prints one
+JSON line with the card's nvidia-smi name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def time_ms(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    tree = os.path.abspath(sys.argv[1])
+    sys.path[:0] = [tree, REPO]
+    import numpy as np
+    import torch
+
+    import bench
+    import mhap_tpu_torch
+    from mhap_tpu_torch.io.filter import FrequencyCounts
+    from mhap_tpu_torch.ops import minhash as mh
+    from mhap_tpu_torch.ops import murmur3
+    from mhap_tpu_torch.ops.minhash_kernels import (min_reduce_w1,
+                                                    weighted_min_reduce)
+    from mhap_tpu_torch.ops.scorer_kernels import score_pairs
+    from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
+    from mhap_tpu_torch.pipeline.overlapper import (TorchOverlapper,
+                                                    _rc_codes)
+
+    assert mhap_tpu_torch.__file__.startswith(tree), mhap_tpu_torch.__file__
+    dev = torch.device("cuda")
+    k1, H = 16, 512
+
+    def rows_of(seqs):
+        arrs = [np.frombuffer(x.encode(), np.uint8) if isinstance(x, str)
+                else x for x in seqs]
+        W = -(-max(map(len, arrs)) // 64) * 64
+        codes = np.zeros((len(arrs), W), np.uint8)
+        ln = np.zeros(len(arrs), np.int64)
+        for i, c in enumerate(arrs):
+            codes[i, :len(c)] = c
+            ln[i] = len(c)
+        h = murmur3.kmer_hashes_128(torch.from_numpy(codes).to(dev), k1)
+        return h, (torch.arange(h.shape[1], device=dev)[None]
+                   < torch.from_numpy(ln - k1 + 1).to(dev)[:, None])
+
+    def weighted(h, valid, weights=None):
+        g = mh.sort_and_count(h, valid)
+        w = g["count"] if weights is None else weights(g["h"], g["count"])
+        w = torch.where(g["first"], w, 0)
+        return g["h"], w, g["first"] & (w > 0), g["tiebreak"]
+
+    out = {"tree": tree}
+    reads = bench.make_reads()
+    h, _ = rows_of(reads[:512])
+    act = torch.ones_like(h, dtype=torch.bool)
+    out["k1 [512, 2885] H=512"] = time_ms(lambda: min_reduce_w1(h, act, H))
+    rows = []
+    for i, r in enumerate(reads[512:576]):
+        rows.append(r[:600] + r[600:700] * (1 + i % 4) + r[700:2000])
+    rows.append(reads[600][:300] + "ACGTTGCA" * 200 + reads[600][300:600])
+    args = weighted(*rows_of(rows))
+    out["k2 phase 2 rows [65, 2289]"] = time_ms(
+        lambda: weighted_min_reduce(*args, H))
+    genome_len = int(2048 * bench.READ_LEN / 25.0)
+    genome = bench.repeat_seeded_genome(genome_len, seed=bench.SEED + 2)
+    reads_f, _, _ = bench.make_reads_placed(2048, seed=bench.SEED + 2,
+                                            lognormal=False, genome=genome,
+                                            genome_len=genome_len)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "kmers.txt")
+        bench.write_filter_file(genome, 16, path)
+        with open(path) as f:
+            fc = FrequencyCounts(f, 1e-5, 0.9, 0, False, 3.0, True)
+    vf = VectorFrequencyFilter(fc, dev)
+    strands = []
+    for r in reads_f[:512]:
+        c = np.frombuffer(r.encode(), np.uint8)
+        strands += [c, _rc_codes(c)]
+    args = weighted(*rows_of(strands),
+                    lambda k, c: vf.weights(k, c, 0.9))
+    out["k2 filtered2k chunk [1024, 2929]"] = time_ms(
+        lambda: weighted_min_reduce(*args, H))
+    ov = TorchOverlapper(device="cuda", kmer_filter=vf)
+    store = ov.sketch_reads(reads_f)
+    qg, cand = ov._candidates(store, ov._build_index(store), store,
+                              np.nonzero(store.is_fwd)[0], True)
+    qi = torch.from_numpy(qg.astype(np.int32)).to(dev)
+    ci = torch.from_numpy(cand.astype(np.int32)).to(dev)
+    cols = store.scorer_cols()
+    out[f"k3 filtered2k {len(qg)} pairs S=1536"] = time_ms(
+        lambda: score_pairs(cols, cols, qi, ci, 0.2))
+    out["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

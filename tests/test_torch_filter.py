@@ -188,12 +188,23 @@ def test_cli_filter_run_gives_jax_cli_lines(cli_run, capsys):
     assert capsys.readouterr().out.splitlines() == cli_run[1]
 
 
-def test_supress_noise_1_2_not_ported(inputs, tmp_path):
-    _reads, lines = inputs
+def test_supress_noise_1_2_not_ported(inputs, tmp_path, capsys):
+    """--supress-noise 1/2 are ported now: the reader keeps every file
+    line's k-mer, and the CLI runs both modes (their lines against the
+    JAX CLI's: tests/test_torch_dat.py), each with other lines than mode
+    0 on eight of the reads."""
+    reads, lines = inputs
     for ru in (1, 2):
-        with pytest.raises(NotImplementedError, match="supress-noise"):
-            FrequencyCounts(iter(lines), 1e-5, 0.9, ru, False, 3.0, True)
+        fc = FrequencyCounts(iter(lines), 1e-5, 0.9, ru, False, 3.0, True)
+        assert fc.valid.numel() >= len(fc.keys) > 0
+    fa = tmp_path / "reads.fa"
+    fa.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads[:8])))
     kf = tmp_path / "kmers.txt"
     kf.write_text("\n".join(lines) + "\n")
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_main(["-s", str(kf), "-f", str(kf), "--supress-noise", "2"])
+    out = []
+    for ru in (0, 1, 2):
+        assert cli_main(["-s", str(fa), "-f", str(kf), "--num-hashes", "64",
+                         "--ordered-sketch-size", "256", "--num-min-matches",
+                         "2", "--supress-noise", str(ru)], device="cpu") == 0
+        out.append(capsys.readouterr().out.splitlines())
+    assert out[0] and out[1] != out[0] and out[2] != out[0]

@@ -1,5 +1,6 @@
 """The port stands without JAX and without the JAX package: imports, a
-small CPU run (unfiltered and filtered) with both blocked, an import scan
+small CPU run (unfiltered, filtered, and a --supress-noise 2 sketch with
+the bloom filter through a .dat file) with both blocked, an import scan
 of its sources, the device check, and chip_smoke.py's refusal to run
 without a GPU or the repo."""
 
@@ -44,6 +45,17 @@ fc = FrequencyCounts(["20 20"] + [f"{k} 0.001" for k in kmers], 1e-5, 0.9,
 filt = TorchOverlapper(cfg, device="cpu", kmer_filter=VectorFrequencyFilter(
     fc, "cpu")).overlap_self(reads)
 assert len(filt) >= 3 and filt != lines, filt
+import os, tempfile
+from mhap_tpu_torch.io import datstore
+fc2 = FrequencyCounts(["20 20"] + [f"{k} 0.001" for k in kmers], 1e-5, 0.9,
+                      2, False, 3.0, True, use_bloom=True)
+store = TorchOverlapper(cfg, device="cpu", kmer_filter=VectorFrequencyFilter(
+    fc2, "cpu")).sketch_reads(reads)
+with tempfile.TemporaryDirectory() as td:
+    datstore.write_dat(os.path.join(td, "x.dat"), store)
+    back = datstore.read_dat(os.path.join(td, "x.dat"), sketch_size=256,
+                             device="cpu")
+assert (back.host("minhash") == store.host("minhash")).all() and len(back)
 assert (min_reduce_w1.launches, weighted_min_reduce.launches,
         score_pairs.launches) == (0, 0, 0)
 assert not any(m.split(".")[0] in ("jax", "mhap_tpu")
@@ -58,7 +70,7 @@ def test_port_imports_and_runs_without_jax():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stderr[-3000:]
     n_modules, n_lines = map(int, r.stdout.split())
-    assert n_modules >= 14 and n_lines >= 3
+    assert n_modules >= 15 and n_lines >= 3
 
 
 def imported_roots(path: str) -> set:

@@ -146,8 +146,8 @@ def test_vote_chunks_match_brute_force(monkeypatch, budget):
 
 def test_cli_self_run_gives_jax_lines(jax_run, reads, tmp_path, capsys):
     """The CLI's self run (-s reads.fa at CFG) on a CPU overlapper prints
-    the JAX line set; the unported -p and --backend sharded stop with an
-    error."""
+    the JAX line set, and so does -s of the .dat that -p writes from the
+    same file; --backend sharded stops with an error."""
     fa = tmp_path / "reads.fa"
     fa.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
     argv = ["-s", str(fa), "--num-hashes", "128", "--ordered-sketch-size",
@@ -156,8 +156,12 @@ def test_cli_self_run_gives_jax_lines(jax_run, reads, tmp_path, capsys):
     assert o.process(argv)
     run_overlap(o, TorchOverlapper(options_to_cfg(o), device="cpu"))
     assert capsys.readouterr().out.splitlines() == jax_run[1]
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_main(["-p", str(tmp_path), "-q", str(tmp_path)])
+    assert cli_main(["-p", str(fa), "-q", str(tmp_path)] + argv[2:],
+                    device="cpu") == 0
+    assert capsys.readouterr().out == ""
+    assert cli_main(["-s", str(tmp_path / "reads.dat")] + argv[2:],
+                    device="cpu") == 0
+    assert capsys.readouterr().out.splitlines() == jax_run[1]
     with pytest.raises(SystemExit, match="not ported"):
         cli_main(argv + ["--backend", "sharded"])
 
@@ -171,14 +175,19 @@ def test_no_kernel_launch_on_cpu(reads):
 
 
 def test_unported_paths_raise(reads, tmp_path):
-    """What stays unported raises: --supress-noise 1/2 in the filter
-    reader, .dat input in the CLI."""
+    """Only --backend sharded and oracle stay unported and stop; the
+    filter reader takes --supress-noise 1/2, and the CLI .dat input."""
     for ru in (1, 2):
-        with pytest.raises(NotImplementedError):
-            FrequencyCounts(["1 1", "ACGTACGTACGTACGT 0.1"], 1e-5, 0.9, ru,
-                            False, 3.0, True)
-    dat = tmp_path / "reads.dat"
-    dat.write_bytes(b"")
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_main(["-s", str(dat)])
+        fc = FrequencyCounts(["1 1", "ACGTACGTACGTACGT 0.1"], 1e-5, 0.9, ru,
+                             False, 3.0, True)
+        assert fc.remove_unique == ru and fc.valid.numel() == 1
+    fa = tmp_path / "reads.fa"
+    fa.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads[:4])))
+    assert cli_main(["-p", str(fa), "-q", str(tmp_path), "--num-hashes",
+                     "128"], device="cpu") == 0
+    assert (tmp_path / "reads.dat").stat().st_size > 0
+    for backend in ("sharded", "oracle"):
+        with pytest.raises(SystemExit, match="not ported"):
+            cli_main(["-s", str(tmp_path / "reads.dat"), "--backend",
+                      backend])
     assert TorchOverlapper(CFG, device="cpu").device == torch.device("cpu")
