@@ -25,7 +25,9 @@ at once), then:
      repeated across hashes), with its registers, shared memory and
      resident blocks per SM; kernel 4 (merge2, no
      caller on the overlap path, as in JAX) on the ordered sketches of
-     4,096 primary candidate pairs and on 37 adversarial row pairs.  The
+     4,096 primary candidate pairs, on 37 adversarial row pairs and on
+     the sketches cut to 1,535 columns (rows not 16-byte aligned: its
+     cp.async path), with its path and occupancy.  The
      device filter weights equal the host float64 ones for every (k-mer,
      count) of filtered2k and for counts up to 10,000;
   3. runs TorchOverlapper.overlap_self on the primary workload
@@ -37,7 +39,9 @@ at once), then:
   5. lognormal10k (bench.make_reads_placed(10_000, seed=SEED + 1)):
      158,246 lines, line set equal to native's; kernel 3 timed on the
      run's whole candidate list, with its bound, and held against its
-     plain version on the first 4,096 pairs;
+     plain version on the first 4,096 pairs; kernel 4 on the ordered
+     sketches of the first 32,768 pairs, [32,768, 1,536] -> [32,768,
+     3,072];
   6. filtered2k (bench.bench_config_filtered's reads and tf-idf filter
      file, read by the port's reader at --supress-noise 0): 286,410 lines,
      line set equal to the native binary's with -f; the CLI's
@@ -54,7 +58,9 @@ at once), then:
      and the run's peak device memory;
   9. shape limits, where the kernels' scratch moves from shared to device
      memory: kernel 3 at S = 10,000 and 70,000 on 8 and 2 candidate pairs
-     of phase 7's long reads, kernel 2 at H = 2,048 and 16,384 on three of
+     of phase 7's long reads, kernel 4 past its parent design's S <= 7,264
+     on those reads' sketches (64 row pairs at S = 10,000, OW = 2S; 4 at
+     S = 70,000, OW = S), kernel 2 at H = 2,048 and 16,384 on three of
      phase 2's repeat rows (also with every k-mer heavy), kernel 1 at
      H = 16,384 on four primary reads, each bit-equal to its plain
      version (timed once), with its path and footprint; then the CLI in
@@ -332,6 +338,17 @@ def merge_rows(store, idx):
     limb1 = torch.where(real, store.ordered_p[idx], -1)
     return limb0.to(torch.int32).contiguous(), \
         limb1.to(torch.int32).contiguous()
+
+
+def candidate_pairs(ov, reads):
+    """(store, qg, cand): the reads' sketch store and its candidate pairs
+    (query and candidate store rows, numpy), as overlap_self builds them."""
+    import numpy as np
+
+    store = ov.sketch_reads(reads)
+    qg, cand = ov._candidates(store, ov._build_index(store), store,
+                              np.nonzero(store.is_fwd)[0], True)
+    return store, qg, cand
 
 
 def adversarial_merge_rows(T: int, S: int, seed: int):
@@ -773,19 +790,17 @@ def k3_timing(name: str, q_cols, c_cols, qi, ci, rate: float,
                         rate))
 
 
-def k3_run_pairs(name: str, ov, reads, rate: float, n_check: int = 4096):
-    """Kernel 3 on a run's whole candidate list, as overlap_self builds it:
-    its timing and bound, and its max |err| against the plain version on
-    the first ``n_check`` pairs, with the plain version's time there."""
+def k3_run_pairs(name: str, pairs, rate: float, n_check: int = 4096):
+    """Kernel 3 on a run's whole candidate list (``candidate_pairs``): its
+    timing and bound, and its max |err| against the plain version on the
+    first ``n_check`` pairs, with the plain version's time there."""
     import numpy as np
     import torch
 
     from mhap_tpu_torch.ops.scorer import score_pairs_ref
     from mhap_tpu_torch.ops.scorer_kernels import score_pairs
 
-    store = ov.sketch_reads(reads)
-    qg, cand = ov._candidates(store, ov._build_index(store), store,
-                              np.nonzero(store.is_fwd)[0], True)
+    store, qg, cand = pairs
     cols = store.scorer_cols()
     dev = cols[0].device
     qi = torch.from_numpy(qg.astype(np.int32)).to(dev)
@@ -799,6 +814,38 @@ def k3_run_pairs(name: str, ov, reads, rate: float, n_check: int = 4096):
     timing[f"plain_ms_first_{n_check}"] = time_ms(
         lambda: score_pairs_ref(*gathered, 0.2), reps=3)
     return err, timing
+
+
+def k4_timing(name: str, ma, OW: int, rate: float, reps: int = 5,
+              plain: bool = True) -> dict:
+    """Kernel 4 on rows ma = (a0, a1, b0, b1) [T, S] -> OW outputs: its
+    max |err| against the plain version, its time beside its bound, the
+    plain version's and torch.sort's (on the packed keys) times, and the
+    path and occupancy it ran with.  Bytes: four [T, S] limb inputs read
+    once, two [T, OW] outputs written once; operations: one 64-bit
+    compare-select an output, 2 INT32 ops, the least a merge does (so
+    bytes bind at every shape)."""
+    import torch
+
+    from mhap_tpu_torch.ops import merge as mg
+    from mhap_tpu_torch.ops.merge_kernels import merge2, occupancy
+
+    T, S = ma[0].shape
+    want = []
+    plain_ms = once_ms(lambda: want.append(mg.merge2_ref(*ma, OW)))
+    err = max_err(merge2(*ma, out_width=OW), want[0])
+    del want
+    ms = time_ms(lambda: merge2(*ma, out_width=OW), reps)
+    packed = torch.cat([mg.pack_keys(ma[0], ma[1]),
+                        mg.pack_keys(ma[2], ma[3])], dim=1)
+    library_ms = time_ms(lambda: torch.sort(packed, dim=1), reps)
+    del packed
+    if plain:
+        plain_ms = time_ms(lambda: mg.merge2_ref(*ma, OW), reps)
+    return dict(input=name, shape=[T, S], out_width=OW, err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                occupancy=occupancy(S, OW),
+                **bound(T * S * 4 * 4 + 2 * T * OW * 4, 2 * T * OW, rate))
 
 
 def run_main_path(ov, reads, kern, n_timed: int = 3):
@@ -957,9 +1004,7 @@ def main() -> int:
     k2["err"] = max(k2["err"], err2f)
 
     ov = TorchOverlapper(device="cuda")
-    store = ov.sketch_reads(reads)
-    qg, cand = ov._candidates(store, ov._build_index(store), store,
-                              np.nonzero(store.is_fwd)[0], True)
+    store, qg, cand = candidate_pairs(ov, reads)
     log(f"[2] primary workload: {len(qg)} candidate pairs")
     qi = torch.from_numpy(qg[:4096].astype(np.int32)).to(dev)
     ci = torch.from_numpy(cand[:4096].astype(np.int32)).to(dev)
@@ -1033,7 +1078,9 @@ def main() -> int:
     results["score_pairs"]["err"] = max(err3, err_a, err_d)
     nat_bad += nat_a + nat_d
 
-    # kernel 4: the primary pairs' ordered sketches, then adversarial rows
+    # kernel 4: the primary pairs' ordered sketches, adversarial rows, and
+    # the same sketches cut to S - 1 = 1,535 columns (rows not 16-byte
+    # aligned: the cp.async path)
     ma = merge_rows(store, qi) + merge_rows(store, ci)
     OW = 2 * S
     merge2.launches = 0
@@ -1042,21 +1089,21 @@ def main() -> int:
     xa = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
           for x in (xa0, xa1, xb0, xb1)]
     err4x = max_err(merge2(*xa), mg.merge2_ref(*xa))
+    mu = [x[:, :S - 1].contiguous() for x in ma]
+    err4u = max_err(merge2(*mu), mg.merge2_ref(*mu))
     merge_launches = merge2.launches
     log(f"[2] kernel 4 merge2 on 37 adversarial row pairs at S={S}: "
-        f"max|err| {err4x}")
-    packed = torch.cat([mg.pack_keys(ma[0], ma[1]),
-                        mg.pack_keys(ma[2], ma[3])], dim=1)
-    # bytes: four [T, S] limb inputs, two [T, OW] outputs; operations: a
-    # binary search of ceil(log2(S + 1)) steps per key, ~4 INT32 ops each
+        f"max|err| {err4x}; on the primary rows cut to S={S - 1}: max|err| "
+        f"{err4u}")
+    t4 = k4_timing(f"primary: first {T} candidate pairs", ma, OW, rate)
+    t4u = k4_timing(f"primary: first {T} pairs, S={S - 1}", mu,
+                    2 * (S - 1), rate)
     results["merge2"] = dict(
-        err=max(err4, err4x), ms=time_ms(lambda: merge2(*ma, out_width=OW)),
-        plain_ms=time_ms(lambda: mg.merge2_ref(*ma, OW)),
-        library_ms=time_ms(lambda: torch.sort(packed, dim=1)),
-        **bound(T * S * 4 * 4 + 2 * T * OW * 4,
-                T * 2 * S * math.ceil(math.log2(S + 1)) * 4, rate))
+        err=max(err4, err4x, err4u, t4["err"], t4u["err"]), ms=t4["ms"],
+        plain_ms=t4["plain_ms"], library_ms=t4["library_ms"],
+        bound_ms=t4["bound_ms"], bound_by=t4["bound_by"], timings=[t4, t4u])
     log(f"[2] kernel 4 merge2 [{T}, {S}] -> [{T}, {OW}] on primary pair "
-        f"sketches: {results['merge2']}")
+        f"sketches: {t4}; cut to S={S - 1}: {t4u}")
     failures = [n for n, r in results.items() if r["err"] != 0]
     if sweep_err:
         failures.append("weighted_min_reduce across plan parameters")
@@ -1069,7 +1116,7 @@ def main() -> int:
 
     # phase 2's tensors go before the main-path runs read peak memory
     del h, act, hr, ar, h2, v2, args2, w2, args, store, cols, got, want
-    del gathered, qa, ca, got_a, ma, xa, packed, qd, cd, got_d
+    del gathered, qa, ca, got_a, ma, xa, mu, qd, cd, got_d
     launches = dict.fromkeys(kern, 0)
 
     def add(counts, need):
@@ -1132,12 +1179,26 @@ def main() -> int:
         f"{sha} native {nat_sha}, launches {counts}; cold {cold:.3f} s, "
         f"steady {steady:.3f} s, peak {mib(peak)}; native {nat_t} s on "
         f"{threads} threads; stats {ov.stats}")
-    e5, t5 = k3_run_pairs("lognormal10k", ov, reads10k, rate)
+    st5, qg5, cand5 = pairs5 = candidate_pairs(ov, reads10k)
+    e5, t5 = k3_run_pairs("lognormal10k", pairs5, rate)
     results["score_pairs"]["timings"].append(t5)
     log(f"[5] kernel 3 on lognormal10k's candidate pairs: {t5}; max|err| "
         f"vs plain on the first 4,096: {e5}")
-    if len(lines) != EXPECTED_LOGNORMAL10K or sha != nat_sha or e5:
-        raise AssertionError("lognormal10k line set or kernel 3 differs")
+    # kernel 4 at a steady shape: the first 32,768 candidate pairs' ordered
+    # sketches, [32,768, 1,536] -> [32,768, 3,072]
+    qi5 = torch.from_numpy(qg5[:32768].astype(np.int32)).to(dev)
+    ci5 = torch.from_numpy(cand5[:32768].astype(np.int32)).to(dev)
+    m5 = merge_rows(st5, qi5) + merge_rows(st5, ci5)
+    t4s = k4_timing(f"lognormal10k: first {len(qi5)} of {len(qg5)} "
+                    f"candidate pairs", m5, 2 * S, rate, plain=False)
+    results["merge2"]["timings"].append(t4s)
+    results["merge2"]["err"] = max(results["merge2"]["err"], t4s["err"])
+    log(f"[5] kernel 4 on lognormal10k's first {len(qi5)} pairs: {t4s}")
+    del st5, pairs5, m5
+    if (len(lines) != EXPECTED_LOGNORMAL10K or sha != nat_sha or e5
+            or t4s["err"] or len(qi5) != 32768):
+        raise AssertionError("lognormal10k line set, kernel 3 or kernel 4 "
+                             "differs")
 
     # ---- phase 6: filtered2k ----
     _, n_nat, threads, nat_sha, nat_t = bench.bench_native(
@@ -1176,7 +1237,7 @@ def main() -> int:
         f"vs its light pass alone {e6}; by heavy_min (ms): {sw}, "
         f"max|diff| {e}")
     del hc, vc, args6
-    e6, t6 = k3_run_pairs("filtered2k", ov, reads_f, rate)
+    e6, t6 = k3_run_pairs("filtered2k", candidate_pairs(ov, reads_f), rate)
     results["score_pairs"]["timings"].append(t6)
     log(f"[6] kernel 3 on filtered2k's candidate pairs: {t6}; max|err| "
         f"vs plain on the first 4,096: {e6}")
@@ -1275,9 +1336,7 @@ def main() -> int:
     # ultra-long mix's 16 long reads (70,000+ ordered 12-mers a strand)
     for S9, n_pairs in ((10_000, 8), (70_000, 2)):
         ov = TorchOverlapper(dict(ordered_sketch_size=S9), device="cuda")
-        st = ov.sketch_reads(reads_u[:16])
-        qg, cand = ov._candidates(st, ov._build_index(st), st,
-                                  np.nonzero(st.is_fwd)[0], True)
+        st, qg, cand = candidate_pairs(ov, reads_u[:16])
         if len(qg) < n_pairs:
             raise AssertionError(f"S={S9}: {len(qg)} candidate pairs")
         qi = torch.from_numpy(qg[:n_pairs].astype(np.int32)).to(dev)
@@ -1298,7 +1357,21 @@ def main() -> int:
         wide["score_pairs"]["timings"].append(t)
         log(f"[9] kernel 3 at S={S9} on {n_pairs} ultra-long pairs (ok "
             f"lanes {int(got[:, 0].sum())}): max|err| {e} vs plain; {t}")
-        del st, cols, got, gathered, want
+        # kernel 4 past the parent design's S <= 7,264: 64 row pairs of
+        # these sketches at OW = 2S (S = 10,000), 4 at OW = S (70,000)
+        rows9, ow9 = (64, 2 * S9) if S9 == 10_000 else (4, S9)
+        n_st = st.ordered_h.shape[0]
+        r9 = torch.arange(rows9, device=dev)
+        m9 = (merge_rows(st, r9 % n_st)
+              + merge_rows(st, (r9 * 7 + rows9 + 3) % n_st))
+        t = k4_timing(f"S={S9}: {rows9} row pairs of ultra-long sketches",
+                      m9, ow9, rate, reps=3, plain=False)
+        results["merge2"]["timings"].append(t)
+        results["merge2"]["err"] = max(results["merge2"]["err"], t["err"])
+        log(f"[9] kernel 4 at S={S9}, OW={ow9} on {rows9} row pairs: {t}")
+        if t["err"]:
+            raise AssertionError(f"kernel 4 at S={S9} differs")
+        del st, cols, got, gathered, want, m9
     # kernel 2 at H = 2,048 and 16,384 on three of phase 2's repeat rows,
     # also with every k-mer of weight >= 2 through the heavy pass
     h9, v9 = code_rows(repeat_rows(reads)[1:4], k1, dev)

@@ -51,6 +51,7 @@ SIGNATURES = {
     "mhap_score_pairs_plan": [_I, _P],
     "mhap_score_pairs_occupancy": [_I, _P],
     "mhap_merge2": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "mhap_merge2_occupancy": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -4,10 +4,12 @@ replaces ``merge2_pallas`` (mhap_tpu/ops/merge_pallas.py:117).
 Like the Pallas kernel it has no caller on the overlap path.  For CPU
 tensors the wrapper runs the plain version ``ops/merge.merge2_ref``; for
 CUDA tensors it launches the kernel or raises.  ``launches`` counts
-kernel launches.
+kernel launches; ``occupancy`` reports what the card gives the kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -46,3 +48,20 @@ def merge2(a0: torch.Tensor, a1: torch.Tensor, b0: torch.Tensor,
 
 
 merge2.launches = 0
+
+
+def occupancy(S: int, out_width: int | None = None) -> dict:
+    """The registers a thread, static / dynamic shared bytes a block, local
+    (spill) bytes a thread and resident blocks per SM of the kernel that
+    merges rows of width S into out_width outputs, as the CUDA runtime
+    reports them; ``path`` "bulk" (cp.async.bulk, rows 16-byte aligned) or
+    "async" (4-byte cp.async), ``tile`` outputs and ``stages``."""
+    info = (ctypes.c_int * 8)()
+    _build.check(_build.kernels().mhap_merge2_occupancy(
+        S, out_width_of(S, out_width), ctypes.addressof(info)),
+        "merge2 occupancy")
+    out = dict(zip(("registers", "static_smem", "dynamic_smem",
+                    "local_bytes", "blocks_per_sm"), info[:5]))
+    out.update(path=("async", "bulk")[info[5]], tile=info[6],
+               stages=info[7])
+    return out

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times kernels 1-3 of one tree's ``mhap_tpu_torch`` at the main path's
+"""Times kernels 1-4 of one tree's ``mhap_tpu_torch`` at the main path's
 shapes on the GPU, so that two trees can be compared in one call:
 
     python3 scripts/kernel_ab.py PARENT_TREE    # then CHANGE, CHANGE, PARENT
@@ -10,8 +10,14 @@ from this checkout.  Shapes: kernel 1 on the primary workload's first
 512 reads [512, 2,885] at H = 512; kernel 2 on chip_smoke.py phase 2's
 repeat rows [65, 2,289] and on the first filtered2k chunk [1,024, 2,929]
 at its tf-idf weights; kernel 3 on all of filtered2k's candidate pairs
-at S = 1,536.  CUDA events, median of 5 after a warm-up.  Prints one
-JSON line with the card's nvidia-smi name and power limit.
+at S = 1,536; kernel 4 on the ordered sketches (``chip_smoke.merge_rows``)
+of the primary workload's first 4,096 candidate pairs and of
+lognormal10k's first 32,768, [T, 1,536] -> [T, 3,072], timed three
+ways: through the wrapper, as a call of its C entry on preallocated
+outputs (the wrapper's checks and allocations left out), and as 20
+wrapper calls back to back over 20 (the host's time a call hidden behind
+the card's queue).  CUDA events, median of 5 after a warm-up.  Prints
+one JSON line with the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -42,17 +48,27 @@ def time_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the time of n back-to-back fn() calls / n."""
+    return time_ms(lambda: [fn() for _ in range(n)], reps) / n
+
+
 def main() -> int:
     tree = os.path.abspath(sys.argv[1])
-    sys.path[:0] = [tree, REPO]
+    sys.path.insert(0, REPO)
     import numpy as np
     import torch
 
     import bench
+    from chip_smoke import candidate_pairs, merge_rows
+
+    sys.path.insert(0, tree)
     import mhap_tpu_torch
     from mhap_tpu_torch.io.filter import FrequencyCounts
+    from mhap_tpu_torch.ops import _build
     from mhap_tpu_torch.ops import minhash as mh
     from mhap_tpu_torch.ops import murmur3
+    from mhap_tpu_torch.ops.merge_kernels import merge2
     from mhap_tpu_torch.ops.minhash_kernels import (min_reduce_w1,
                                                     weighted_min_reduce)
     from mhap_tpu_torch.ops.scorer_kernels import score_pairs
@@ -114,15 +130,36 @@ def main() -> int:
                     lambda k, c: vf.weights(k, c, 0.9))
     out["k2 filtered2k chunk [1024, 2929]"] = time_ms(
         lambda: weighted_min_reduce(*args, H))
-    ov = TorchOverlapper(device="cuda", kmer_filter=vf)
-    store = ov.sketch_reads(reads_f)
-    qg, cand = ov._candidates(store, ov._build_index(store), store,
-                              np.nonzero(store.is_fwd)[0], True)
+    store, qg, cand = candidate_pairs(
+        TorchOverlapper(device="cuda", kmer_filter=vf), reads_f)
     qi = torch.from_numpy(qg.astype(np.int32)).to(dev)
     ci = torch.from_numpy(cand.astype(np.int32)).to(dev)
     cols = store.scorer_cols()
     out[f"k3 filtered2k {len(qg)} pairs S=1536"] = time_ms(
         lambda: score_pairs(cols, cols, qi, ci, 0.2))
+    del store, cols
+    for name, rs, n in (
+            ("primary", reads, 4096),
+            ("lognormal10k", bench.make_reads_placed(
+                10_000, seed=bench.SEED + 1)[0], 32768)):
+        store, qg, cand = candidate_pairs(TorchOverlapper(device="cuda"),
+                                          rs)
+        qi = torch.from_numpy(qg[:n].astype(np.int32)).to(dev)
+        ci = torch.from_numpy(cand[:n].astype(np.int32)).to(dev)
+        ma = merge_rows(store, qi) + merge_rows(store, ci)
+        o = torch.empty((2, n, 3072), dtype=torch.int32, device=dev)
+        args = [x.data_ptr() for x in ma] + [n, 1536, 3072,
+                                             o[0].data_ptr(), o[1].data_ptr()]
+        lib = _build.kernels()
+        stream = torch.cuda.current_stream().cuda_stream
+        key = f"k4 {name} [{n}, 1536] -> 3072"
+        out[key] = time_ms(lambda: merge2(*ma, out_width=3072))
+        out[key + " C entry"] = time_ms(
+            lambda: _build.check(lib.mhap_merge2(*args, stream), "merge2"))
+        out[key + " queued"] = queued_ms(lambda: merge2(*ma, out_width=3072))
+        if not all(map(torch.equal, o, merge2(*ma, out_width=3072))):
+            raise AssertionError(f"{key}: C entry differs from the wrapper")
+        del store, ma, o
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
