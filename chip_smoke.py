@@ -82,9 +82,20 @@ at once), then:
      the query candidate pairs; a mode-1 library run (the exact set) of
      all 2,048 reads against its JAX golden (505,891 lines); and mode 2
      with the bloom on the recipe's 512 reads (87,037 lines, the JAX
-     package's sha256).
+     package's sha256);
+ 11. the sharded path (mhap_tpu_torch/parallel): ShardedOverlapper at
+     world size 1 on NCCL on lognormal10k (line set equal to native's,
+     stats equal to phase 5's, walls beside phase 5's); 2 and 4 gloo
+     ranks sharing the card (spawned by parallel/launch.run_ranks after
+     the kernels are built here) on the primary reads and, at 2,
+     filtered2k with its filter, each rank's launches, peak memory and
+     postings bytes logged and the launches counted; the CLI's
+     --backend sharded as a subprocess, and under torchrun with one rank
+     a card when the machine has 2 or more (scripts/sharded_check.py
+     runs NCCL ranks at D = 2 and every card).
 Every launch counter is set to 0 right before each main-path run of
-phases 3-10 and read right after; a kernel of a path that did not launch
+phases 3-11 and read right after (each rank of phase 11's
+launches does so itself); a kernel of a path that did not launch
 there fails the run, and so does a device-memory path of phase 9 that
 phase 9's CLI runs did not launch.  The bound of each kernel is the
 larger of its bytes
@@ -875,6 +886,109 @@ def run_main_path(ov, reads, kern, n_timed: int = 3):
             torch.cuda.max_memory_allocated())
 
 
+def sharded_phase(bench, kern, add, launches, native_sha, run5, reads10k,
+                  reads_f, fc, tmpdir: str) -> None:
+    """Phase 11: ShardedOverlapper at world size 1 on NCCL against phase
+    5's run; 2 and 4 gloo ranks sharing the card (their kernels built
+    here already), their launches added to ``launches``; the CLI as a
+    subprocess, and under torchrun when there are 2 or more cards."""
+    import torch
+
+    from mhap_tpu_torch.parallel import comm, launch
+    from mhap_tpu_torch.parallel.jobs import run_jobs
+    from mhap_tpu_torch.parallel.sharded import _INT_STATS, ShardedOverlapper
+
+    t11 = time.perf_counter()
+    # (a) one rank, NCCL, cuda:0: lognormal10k as phase 5 ran it
+    with comm.single("nccl", "cuda:0") as c:
+        ov = ShardedOverlapper(c)
+        lines, counts, cold, steady, peak = run_main_path(ov, reads10k,
+                                                          kern)
+        stats = ov.total_stats()
+    add(counts, ("min_reduce_w1", "score_pairs"))
+    sha = bench.lineset_sha256(lines)
+    same_stats = all(stats[k] == run5["stats"][k] for k in _INT_STATS)
+    log(f"[11] (a) world size 1, NCCL: lognormal10k {len(lines)} lines, "
+        f"sha256 equal to native's: {sha == native_sha['lognormal10k']}, "
+        f"stats equal to phase 5's: {same_stats}, launches {counts}; cold "
+        f"{cold:.3f} s, steady {steady:.3f} s (phase 5, single-GPU: cold "
+        f"{run5['cold']:.3f} s, steady {run5['steady']:.3f} s), peak "
+        f"{peak / 2**20:.1f} MiB (phase 5 {run5['peak'] / 2**20:.1f} MiB),"
+        f" postings {ov.index_bytes / 2**20:.1f} MiB")
+    if (len(lines) != EXPECTED_LOGNORMAL10K
+            or sha != native_sha["lognormal10k"] or not same_stats):
+        raise AssertionError("sharded world size 1 differs from phase 5")
+    del ov
+    # (b) D gloo ranks on cuda:0, staging collectives through the host
+    primary = bench.make_reads()
+    want = {"primary": (EXPECTED_PRIMARY, ("min_reduce_w1", "score_pairs")),
+            "filtered2k": (EXPECTED_FILTERED2K,
+                           ("weighted_min_reduce", "score_pairs"))}
+    runs = {2: [("primary", dict(reads=primary)),
+                ("filtered2k", dict(reads=reads_f, filter=fc))],
+            4: [("primary", dict(reads=primary))]}
+    postings = {}
+    for D, jobs in runs.items():
+        t0 = time.perf_counter()
+        res = launch.run_ranks(run_jobs, D, backend="gloo",
+                               devices=["cuda:0"] * D,
+                               args=([job for _n, job in jobs],))
+        secs = time.perf_counter() - t0
+        for j, (name, _job) in enumerate(jobs):
+            ranks = [r[j] for r in res]
+            got = ranks[0]["lines"]
+            counts = {k: sum(r["launches"][k] for r in ranks) for k in kern
+                      if k in ranks[0]["launches"]}
+            add(counts, want[name][1])
+            ok = (len(got) == want[name][0] and not any(
+                r["lines"] for r in ranks[1:]) and
+                bench.lineset_sha256(got) == native_sha[name])
+            postings.setdefault(name, {})[D] = [r["index_bytes"]
+                                                for r in ranks]
+            log(f"[11] (b) {D} gloo ranks on cuda:0, {name}: {len(got)} "
+                f"lines, sha256 equal to native's: {ok}; by rank: launches "
+                f"{[r['launches'] for r in ranks]}, peak "
+                f"{[round(r['peak_bytes'] / 2**20, 1) for r in ranks]} MiB,"
+                f" postings {[round(b / 2**20, 2) for b in postings[name][D]]}"
+                f" MiB, wall {[round(r['seconds'], 3) for r in ranks]} s "
+                f"(launch {secs:.1f} s, processes included)")
+            if not ok:
+                raise AssertionError(f"{D} ranks on {name} differ")
+    by_d = {D: sum(b) for D, b in postings["primary"].items()}
+    if len(set(by_d.values())) != 1 or any(
+            len(set(b)) != 1 for b in postings["primary"].values()):
+        raise AssertionError(f"postings are not split evenly: {postings}")
+    # (c) the CLI, a subprocess at world size 1; torchrun with every card
+    fa = write_fasta(os.path.join(tmpdir, "primary11.fa"), primary)
+    cli_lines, cli_s = cli_process(["--backend", "sharded", "-s", fa])
+    ok = bench.lineset_sha256(cli_lines) == native_sha["primary"]
+    log(f"[11] (c) CLI --backend sharded -s primary.fa, world size 1: "
+        f"{len(cli_lines)} lines, sha256 equal to native's: {ok} "
+        f"({cli_s:.1f} s, process included)")
+    if not ok:
+        raise AssertionError("sharded CLI differs from native")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={n}", "-m", "mhap_tpu_torch.cli.main",
+             "--backend", "sharded", "-s", fa], cwd=REPO,
+            capture_output=True, text=True)
+        tr_lines = sorted(r.stdout.splitlines())
+        ok = (r.returncode == 0 and bench.lineset_sha256(tr_lines)
+              == native_sha["primary"])
+        log(f"[11] (c) torchrun --nproc-per-node {n}, NCCL: {len(tr_lines)}"
+            f" lines, sha256 equal to native's: {ok} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if not ok:
+            raise AssertionError(f"torchrun CLI differs: {r.stderr[-3000:]}")
+    else:
+        log(f"[11] (c) torchrun not run: {n} card (NCCL takes one card a "
+            f"rank); scripts/sharded_check.py runs NCCL ranks on 2 or more")
+    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1141,6 +1255,7 @@ def main() -> int:
         f"{nat_t} s on {threads} threads")
     if len(lines) != EXPECTED_PRIMARY or sha != nat_sha:
         raise AssertionError("primary workload line set differs")
+    native_sha = {"primary": nat_sha}
 
     # ---- phase 4: repeat mix ----
     mix = repeat_mix(bench)
@@ -1175,6 +1290,8 @@ def main() -> int:
     lines, counts, cold, steady, peak = run_main_path(ov, reads10k, kern)
     add(counts, ("min_reduce_w1", "score_pairs"))
     sha = bench.lineset_sha256(lines)
+    native_sha["lognormal10k"] = nat_sha
+    run5 = dict(stats=dict(ov.stats), cold=cold, steady=steady, peak=peak)
     log(f"[5] lognormal10k: {len(lines)} lines (native {n_nat}), sha256 "
         f"{sha} native {nat_sha}, launches {counts}; cold {cold:.3f} s, "
         f"steady {steady:.3f} s, peak {mib(peak)}; native {nat_t} s on "
@@ -1261,6 +1378,7 @@ def main() -> int:
     if (len(lines) != EXPECTED_FILTERED2K or sha != nat_sha
             or cli_lines != lines or k2["err"] or sweep_err or e6):
         raise AssertionError("filtered2k line set or kernel 2 or 3 differs")
+    native_sha["filtered2k"] = nat_sha
 
     # ---- phase 7: ultra-long mix ----
     reads_u = ultra_long_mix(bench)
@@ -1631,6 +1749,10 @@ def main() -> int:
         f"steady {steady:.3f} s, peak {mib(peak)}")
     if len(lines) != CANU512_LINES or sha != CANU512_SHA256:
         raise AssertionError("512-read mode 2 differs from the JAX golden")
+
+    # ---- phase 11: the sharded path (mhap_tpu_torch/parallel) ----
+    sharded_phase(bench, kern, add, launches, native_sha, run5, reads10k,
+                  reads_f, fc, tmp.name)
 
     for name in path_kernels:
         if launches[name] == 0:

@@ -14,12 +14,25 @@ argument into ``<name>.dat`` in the ``-q`` directory (the path Canu
 runs: ``-p`` per block, then ``-s block.dat -q dir``).  ``-f`` takes a
 k-mer frequency file at every ``--supress-noise`` mode; modes 1 and 2
 hold the file's k-mers in the reference's Guava bloom filter, as the JAX
-CLI does.  ``--backend`` other than ``device`` (sharded, oracle) is not
+CLI does.
+
+``--backend sharded`` runs ``parallel/sharded.ShardedOverlapper``, one
+rank a GPU:
+
+    torchrun --nproc-per-node N -m mhap_tpu_torch.cli.main \
+        --backend sharded -s reads.fa
+
+Under torchrun (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) the ranks join
+through ``env://`` with NCCL, rank r on ``cuda:LOCAL_RANK``; without that
+environment the run is one rank.  Rank 0 prints the lines and the stats
+block, its stats summed over the ranks.  ``--backend oracle`` is not
 ported and stops with an error.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import os
 import sys
 import time
@@ -37,9 +50,12 @@ def _not_ported(what: str) -> SystemExit:
                       "python -m mhap_tpu.cli.main")
 
 
-def main(argv=None, device="cuda") -> int:
+def main(argv=None, device="cuda", comm=None) -> int:
     """Runs the command line ``argv``; the overlapper runs on ``device``
-    (the GPU unless a caller, such as a test, asks for the CPU)."""
+    (the GPU unless a caller, such as a test, asks for the CPU).
+    ``--backend sharded`` runs on the ranks of ``comm`` (a
+    ``parallel.comm.Comm``) if given, else on those ``sharded_comm``
+    joins."""
     argv = sys.argv[1:] if argv is None else argv
     o = build_options()
     if not o.process(argv):
@@ -88,17 +104,57 @@ def main(argv=None, device="cuda") -> int:
         if bad:
             print(msg)
             return 1
-    if o.get("--backend").value != "device":
-        raise _not_ported(f"--backend {o.get('--backend').value}")
-    print("Running with these settings:", file=sys.stderr)
-    print(o, file=sys.stderr)
-    t_total = time.time()
-    if p_file:
-        run_precompute(o, build_overlapper(o, device))
-    else:
-        run_overlap(o, build_overlapper(o, device))
-    print(f"Total time (s): {time.time() - t_total}", file=sys.stderr)
+    backend = o.get("--backend").value
+    if backend not in ("device", "sharded"):
+        raise _not_ported(f"--backend {backend}")
+    own = backend == "sharded" and comm is None
+    if own:
+        comm = sharded_comm(device)
+    try:
+        # ranks other than 0 print neither lines nor stats
+        with (contextlib.redirect_stderr(io.StringIO())
+              if comm is not None and comm.rank else
+              contextlib.nullcontext()):
+            print("Running with these settings:", file=sys.stderr)
+            print(o, file=sys.stderr)
+            t_total = time.time()
+            ov = build_overlapper(o, device, comm if backend == "sharded"
+                                  else None)
+            if p_file:
+                run_precompute(o, ov)
+            else:
+                run_overlap(o, ov)
+            print(f"Total time (s): {time.time() - t_total}",
+                  file=sys.stderr)
+    finally:
+        if own:
+            comm.close()
     return 0
+
+
+def sharded_comm(device="cuda"):
+    """The ranks of ``--backend sharded``: under torchrun's environment
+    its group through ``env://``, on ``cuda:LOCAL_RANK`` with NCCL;
+    without it a group of one rank on ``device``.  A CPU ``device`` (the
+    tests) runs the collectives with gloo."""
+    import torch
+
+    from ..parallel import comm as _comm
+
+    dev = torch.device(device)
+    backend = "gloo" if dev.type == "cpu" else "nccl"
+    if "WORLD_SIZE" not in os.environ:
+        return _comm.single(backend, device)
+    if dev.type == "cuda":
+        local = int(os.environ["LOCAL_RANK"])
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"LOCAL_RANK {local} but torch sees "
+                f"{torch.cuda.device_count()} CUDA devices")
+        dev = torch.device("cuda", local)
+    return _comm.init(backend, int(os.environ["RANK"]),
+                      int(os.environ["WORLD_SIZE"]), dev,
+                      init_method="env://")
 
 
 def load_filter(o):
@@ -126,12 +182,19 @@ def load_filter(o):
     return fc
 
 
-def build_overlapper(o, device="cuda"):
-    """The run's ``TorchOverlapper`` with its ``-f`` filter, if any."""
+def build_overlapper(o, device="cuda", comm=None):
+    """The run's ``TorchOverlapper`` with its ``-f`` filter, if any; a
+    ``ShardedOverlapper`` on the ranks of ``comm`` if given."""
     from ..pipeline.freqfilter import VectorFrequencyFilter
     from ..pipeline.overlapper import TorchOverlapper
 
     fc = load_filter(o)
+    if comm is not None:
+        from ..parallel.sharded import ShardedOverlapper
+
+        vf = VectorFrequencyFilter(fc, comm.device) if fc is not None \
+            else None
+        return ShardedOverlapper(comm, options_to_cfg(o), kmer_filter=vf)
     vf = VectorFrequencyFilter(fc, device) if fc is not None else None
     return TorchOverlapper(options_to_cfg(o), device, kmer_filter=vf)
 
@@ -146,9 +209,8 @@ def run_overlap(o, ov) -> None:
     t0 = time.time()
     print("Processing files for storage in reverse index...",
           file=sys.stderr)
-    S = ov.cfg["ordered_sketch_size"]
     if s_file.endswith(".dat"):
-        box = datstore.read_dat(s_file, 0, sketch_size=S, device=ov.device)
+        box = ov.read_dat(s_file)
     else:
         headers, reads = _load_reads(s_file, store_full_id)
         box = ov.sketch_reads(reads, headers, do_rc=do_rc)
@@ -163,8 +225,8 @@ def run_overlap(o, ov) -> None:
     if not no_self or not q_file:
         t0 = time.time()
         q_sel = np.nonzero(box.is_fwd)[0]
-        write_lines(sorted(ov._find_matches(box, index, box, q_sel, True)),
-                    out, paf)
+        write_lines(ov._gather_lines(
+            ov._find_matches(box, index, box, q_sel, True)), out, paf)
         print(f"Time (s) to score and output to self: {time.time() - t0}",
               file=sys.stderr)
     offset = n_box // 2
@@ -172,15 +234,14 @@ def run_overlap(o, ov) -> None:
         for qf in list_sequence_files(q_file):
             t0 = time.time()
             if qf.endswith(".dat"):
-                queries = datstore.read_dat(qf, offset, fwd_only=True,
-                                            sketch_size=S, device=ov.device)
+                queries = ov.read_dat(qf, offset, fwd_only=True)
             else:
                 qh, qreads = _load_reads(qf, store_full_id)
                 queries = ov.sketch_reads(qreads, qh, offset=offset,
                                           do_rc=False)
             q_sel = np.arange(len(queries))
-            write_lines(sorted(ov._find_matches(box, index, queries, q_sel,
-                                                False)), out, paf)
+            write_lines(ov._gather_lines(ov._find_matches(
+                box, index, queries, q_sel, False)), out, paf)
             offset += len(queries)
             print(f"Processed {len(queries)} to sequences.",
                   file=sys.stderr)
@@ -188,7 +249,7 @@ def run_overlap(o, ov) -> None:
                   f"{time.time() - t0}", file=sys.stderr)
     out.flush()
     # final stats block, field-for-field with MhapMain.outputFinalStat
-    st = ov.stats
+    st = ov.total_stats()
     size = box.n_real
     searched = float(st["sequences_searched"])
     hit = float(st["sequences_hit"])
@@ -237,8 +298,10 @@ def run_precompute(o, ov) -> None:
         if i > 0:
             name = name[:i]
         out_path = os.path.join(to_dir, name + ".dat")
-        datstore.write_dat(out_path, store,
-                           ordered_kmer_size=ov.cfg["ordered_kmer_size"])
+        whole = ov.whole_store(store)
+        if whole is not None:  # None on a rank other than 0
+            datstore.write_dat(out_path, whole,
+                               ordered_kmer_size=ov.cfg["ordered_kmer_size"])
         print(f"Processed {len(store)} sequences (fwd and rev).",
               file=sys.stderr)
         print(f"Read, hashed, and stored file {pf} to {out_path}.",

@@ -27,7 +27,7 @@ def build_postings(minhash: torch.Tensor):
     return vals.contiguous(), sids
 
 
-def _expand(sids, left, cnt, q0: int):
+def expand_hits(sids, left, cnt, q0: int):
     """Hits of query columns with spans ``left``/``cnt`` [H, Qc] in the
     sorted postings (global query index q0 + column): (query, candidate)
     int64 pairs, one per hit."""
@@ -48,42 +48,53 @@ def _expand(sids, left, cnt, q0: int):
     return q, cand
 
 
+def count_votes(keys: torch.Tensor, num_min_matches: int):
+    """The distinct ``q * N + cand`` keys that occur at least
+    num_min_matches times in ``keys``, sorted, and the number of distinct
+    keys."""
+    ukey, votes = torch.unique_consecutive(torch.sort(keys).values,
+                                           return_counts=True)
+    return ukey[votes >= num_min_matches], ukey.numel()
+
+
+def chunk_bounds(per_q: list) -> list:
+    """(start, end) of consecutive query chunks whose hits (``per_q``, a
+    count a query) stay within HIT_BUDGET; a query with more hits than
+    that is a chunk of its own."""
+    bounds = [0]
+    acc = 0
+    for i, c in enumerate(per_q):
+        if acc and acc + c > HIT_BUDGET:
+            bounds.append(i)
+            acc = 0
+        acc += c
+    bounds.append(len(per_q))
+    return [(s, e) for s, e in zip(bounds[:-1], bounds[1:]) if e > s]
+
+
 def vote(postings, query_mh: torch.Tensor, num_min_matches: int):
     """Candidate pairs of ``query_mh`` [Q, H] against the postings.
 
     Returns (q_idx, cand) int64 tensors over pairs with
     ``votes >= num_min_matches``, plus the search stats
     ``hits_total`` (every table element processed) and ``distinct``
-    (distinct pairs before the threshold)."""
+    (distinct pairs before the threshold).  The hits are expanded in
+    chunks of queries of at most HIT_BUDGET hits (``chunk_bounds``)."""
     vals, sids = postings
     H, N = vals.shape
     dev = vals.device
-    Q = query_mh.shape[0]
     qT = query_mh.t().contiguous()
     # each query value's span in its slot's table; the hits per query cut
     # the queries into chunks under the budget
     left = torch.searchsorted(vals, qT)
     cnt = torch.searchsorted(vals, qT, right=True) - left
-    per_q = cnt.sum(0).cpu()
-    bounds = [0]
-    acc = 0
-    for i, c in enumerate(per_q.tolist()):
-        if acc and acc + c > HIT_BUDGET:
-            bounds.append(i)
-            acc = 0
-        acc += c
-    bounds.append(Q)
     hits_total, distinct = 0, 0
     outs = []
-    for s, e in zip(bounds[:-1], bounds[1:]):
-        if e <= s:
-            continue
-        q, cand = _expand(sids, left[:, s:e], cnt[:, s:e], s)
+    for s, e in chunk_bounds(cnt.sum(0).tolist()):
+        q, cand = expand_hits(sids, left[:, s:e], cnt[:, s:e], s)
         hits_total += q.numel()
-        key = torch.sort(q * N + cand).values
-        ukey, votes = torch.unique_consecutive(key, return_counts=True)
-        distinct += ukey.numel()
-        ukey = ukey[votes >= num_min_matches]
+        ukey, n = count_votes(q * N + cand, num_min_matches)
+        distinct += n
         outs.append((ukey // N, ukey % N))
     if not outs:
         e = torch.zeros(0, dtype=I64, device=dev)

@@ -42,6 +42,7 @@ from ..ops import minhash as _minhash
 from ..ops import murmur3 as _murmur3
 from ..ops.minhash_kernels import min_reduce_w1, weighted_min_reduce
 from ..ops.scorer import COLS as SCORE_COLS
+from ..ops.scorer import N_COLS
 from ..ops.scorer_kernels import score_pairs as _score_pairs_kernel
 from ..utils.native import format_m4
 
@@ -78,6 +79,13 @@ def jaccard_to_identity(score: float, kmer_size: int) -> float:
         return 0.0
     d = -1.0 / kmer_size * math.log(2.0 * score / (1.0 + score))
     return math.exp(-d)
+
+
+def score_columns(parts) -> dict:
+    """Blocks of scorer output [t, 16] -> one host array a column of
+    ``ops/scorer.COLS``."""
+    out = np.concatenate(parts) if parts else np.zeros((0, N_COLS), np.int32)
+    return {name: out[:, j] for j, name in enumerate(SCORE_COLS)}
 
 
 class SketchStore:
@@ -293,8 +301,7 @@ class TorchOverlapper:
             parts.append(_score_pairs_kernel(
                 qs.scorer_cols(), cs.scorer_cols(), q, c,
                 float(self.cfg["max_shift"])).cpu().numpy())
-        out = np.concatenate(parts)
-        return {name: out[:, j] for j, name in enumerate(SCORE_COLS)}
+        return score_columns(parts)
 
     def _identity_scores(self, out: dict):
         """Integer scorer outputs -> (score, raw, edges) host arrays.
@@ -321,9 +328,6 @@ class TorchOverlapper:
                     qi: np.ndarray, ci: np.ndarray):
         """Stage-2 scores of (qs[qi[t]], cs[ci[t]]).  Returns (score
         float64 [T], raw float64 [T], edges int32 [T, 4])."""
-        if len(qi) == 0:
-            return (np.zeros(0, np.float64), np.zeros(0, np.float64),
-                    np.zeros((0, 4), np.int32))
         out = self._score_dispatch(qs, cs, qi.astype(np.int32),
                                    ci.astype(np.int32))
         self.slow_pair_count += int(out["escal"].sum())
@@ -367,21 +371,27 @@ class TorchOverlapper:
                              qlen.tolist(), crc.tolist(), fb1.tolist(),
                              fb2.tolist(), clen.tolist())]
 
+    def _vote(self, index, queries: SketchStore, q_sel: np.ndarray):
+        """Pairs (position in ``q_sel``, store row) with at least
+        num_min_matches votes, as host int64 arrays; adds the search
+        stats."""
+        self.stats["sequences_searched"] += len(q_sel)
+        qmh = queries.minhash[torch.from_numpy(q_sel).to(self.device)]
+        q_idx, cand, hits_total, distinct = _postings.vote(
+            index, qmh, self.cfg["num_min_matches"])
+        self.stats["elements_processed"] += hits_total
+        self.stats["sequences_hit"] += distinct
+        return q_idx.cpu().numpy(), cand.cpu().numpy()
+
     def _candidates(self, store: SketchStore, index, queries: SketchStore,
                     q_sel: np.ndarray, to_self: bool):
         """Vote + suppression rules (MinHashSearch.java:149-251;
         overlapper.py:2583-2613): (query row, store row) pairs to score."""
         cfg = self.cfg
-        self.stats["sequences_searched"] += len(q_sel)
         t0 = time.perf_counter()
         q_sel = np.asarray(q_sel, np.int64)
-        qmh = queries.minhash[torch.from_numpy(q_sel).to(self.device)]
-        q_idx, cand, hits_total, distinct = _postings.vote(
-            index, qmh, cfg["num_min_matches"])
-        q_idx, cand = q_idx.cpu().numpy(), cand.cpu().numpy()
+        q_idx, cand = self._vote(index, queries, q_sel)
         self.stats["minhash_search_time"] += time.perf_counter() - t0
-        self.stats["elements_processed"] += hits_total
-        self.stats["sequences_hit"] += distinct
         qg = q_sel[q_idx]
         keepm = store.header_id[cand] > 0
         msl = cfg["min_store_length"]
@@ -403,8 +413,6 @@ class TorchOverlapper:
         if len(q_sel) == 0:
             return []
         qg, cand = self._candidates(store, index, queries, q_sel, to_self)
-        if len(qg) == 0:
-            return []
         t0 = time.perf_counter()
         self.stats["sequences_fully_compared"] += len(qg)
         score, raw, edges = self.score_pairs(queries, store, qg, cand)
@@ -415,12 +423,37 @@ class TorchOverlapper:
         self.stats["sort_merge_time"] += time.perf_counter() - t0
         return lines
 
+    # ---------------- stores and results (parallel/sharded.py splits
+    # each over its ranks) ----------------
+
+    def read_dat(self, path: str, offset: int = 0,
+                 fwd_only: bool = False) -> SketchStore:
+        """A ``.dat`` sketch file as a store on this overlapper's device."""
+        from ..io import datstore
+
+        return datstore.read_dat(path, offset, fwd_only,
+                                 self.cfg["ordered_sketch_size"],
+                                 self.device)
+
+    def whole_store(self, store: SketchStore):
+        """The store whole, as ``-p`` writes it to a ``.dat`` file."""
+        return store
+
+    def _gather_lines(self, lines: list[str]) -> list[str]:
+        """The run's line set, sorted."""
+        return sorted(lines)
+
+    def total_stats(self) -> dict:
+        """The search stats of every run so far (the CLI's stats block)."""
+        return dict(self.stats)
+
     def overlap_self(self, reads: list[str], headers=None) -> list[str]:
         """Self-overlap run; returns the sorted list of M4 lines."""
         store = self.sketch_reads(reads, headers)
         index = self._build_index(store)
         q_sel = np.nonzero(store.is_fwd)[0]
-        return sorted(self._find_matches(store, index, store, q_sel, True))
+        return self._gather_lines(
+            self._find_matches(store, index, store, q_sel, True))
 
     def overlap_query(self, box_reads: list[str], query_reads: list[str],
                       no_self: bool = False) -> list[str]:
@@ -435,4 +468,4 @@ class TorchOverlapper:
                                     do_rc=False)
         lines += self._find_matches(box, index, queries,
                                     np.arange(len(queries)), False)
-        return sorted(lines)
+        return self._gather_lines(lines)

@@ -1,6 +1,7 @@
 """The port stands without JAX and without the JAX package: imports, a
-small CPU run (unfiltered, filtered, and a --supress-noise 2 sketch with
-the bloom filter through a .dat file) with both blocked, an import scan
+small CPU run (unfiltered, filtered, a --supress-noise 2 sketch with
+the bloom filter through a .dat file, and a one-rank sharded run) with
+both blocked, an import scan
 of its sources, the device check, and chip_smoke.py's refusal to run
 without a GPU or the repo."""
 
@@ -56,6 +57,10 @@ with tempfile.TemporaryDirectory() as td:
     back = datstore.read_dat(os.path.join(td, "x.dat"), sketch_size=256,
                              device="cpu")
 assert (back.host("minhash") == store.host("minhash")).all() and len(back)
+from mhap_tpu_torch.parallel import comm
+from mhap_tpu_torch.parallel.sharded import ShardedOverlapper
+with comm.single("gloo", "cpu") as c:
+    assert ShardedOverlapper(c, cfg).overlap_self(reads) == lines
 assert (min_reduce_w1.launches, weighted_min_reduce.launches,
         score_pairs.launches) == (0, 0, 0)
 assert not any(m.split(".")[0] in ("jax", "mhap_tpu")
