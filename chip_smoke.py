@@ -32,7 +32,9 @@ at once), then:
      count) of filtered2k and for counts up to 10,000;
   3. runs TorchOverlapper.overlap_self on the primary workload
      (bench.make_reads(): 1,024 reads x 2.9 kb): 4,349 lines whose
-     line-set sha256 equals the native binary's on the same reads;
+     line-set sha256 equals the native binary's on the same reads; then
+     the CLI in this process at --settings 2 and 3, each line set equal
+     to native's at the flags the preset expands to (cli/options.PRESETS);
   4. a repeat mix (256 reads, 32 with an internal 500 bp duplication, 2
      with an ACGTTGCA x 200 tandem insert): line set equal to native's;
      kernel 2 on its repeat strands by heavy_min;
@@ -92,9 +94,24 @@ at once), then:
      postings bytes logged and the launches counted; the CLI's
      --backend sharded as a subprocess, and under torchrun with one rank
      a card when the machine has 2 or more (scripts/sharded_check.py
-     runs NCCL ranks at D = 2 and every card).
+     runs NCCL ranks at D = 2 and every card);
+ 12. EstimateROC (mhap_tpu_torch/tools/estimate_roc.py) and kernel 5,
+     the batched Smith-Waterman (csrc/swalign.cu): kernel 5 bit-equal to
+     its plain version on the CPU test's adversarial set; EstimateROC(
+     min_ovl_len=500, num_trials=2000, do_dp=True, device="cuda") as
+     bench.bench_config_lognormal runs it, with estimate_ppv(batch_dp=
+     True), on phase 5's lognormal10k and phase 6's filtered2k (its
+     repeat family gives 1,713 disputed pairs, which go through kernel 5;
+     lognormal10k has none), each with its truth (bench.write_truth_m4):
+     tp, fn, tn, fp, sensitivity, specificity, PPV, the disputed count
+     and the sha256 of kernel 5's eight output columns equal to the JAX
+     package's goldens (ROC_GOLDENS); lognormal10k's per-pair PPV (the
+     native library) beside it, and the tool's CLI as a subprocess, its
+     stdout equal to the JAX tool's; kernel 5 timed on filtered2k's
+     disputed pairs and on the first 8 cut to 2,000 bases, bit-equal to
+     its plain version on both, with its bound and GCUPS.
 Every launch counter is set to 0 right before each main-path run of
-phases 3-11 and read right after (each rank of phase 11's
+phases 3-12 and read right after (each rank of phase 11's
 launches does so itself); a kernel of a path that did not launch
 there fails the run, and so does a device-memory path of phase 9 that
 phase 9's CLI runs did not launch.  The bound of each kernel is the
@@ -163,6 +180,38 @@ CANU_MODE1_SHA256 = \
 CANU512_LINES = 87037
 CANU512_SHA256 = \
     "b157c8b5c3da91e7038e57e61fb8e188302cce2d1e976662ba743c30374a2474"
+# INT32 operations a cell of csrc/swalign.cu: E and F each two subtracts,
+# a compare, a select, four stat selects and an add (18); the diagonal's
+# byte compare, score select, add, two stat adds, H == 0 compare, i-1,
+# j-1 and two selects (10); three max (3); h > 0 and three equality
+# compares with four stats selected three ways (16); the running best's
+# compare and seven selects (8)
+SW_OPS_PER_CELL = 55
+# phase 12, EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True) on
+# each input's truth (bench.write_truth_m4) and line set, sorted as
+# overlap_self returns it: goldens of the JAX package on the CPU
+# (scripts/roc_goldens.py, 8 shared CPU cores), estimate_ppv(batch_dp=True)
+# with the sha256 of its sw_align_batch outputs (sw_sha256), and the
+# stdout of python -m mhap_tpu.tools.estimate_roc truth.m4 ovl.mhap
+# reads.fa 500 2000 true (per-pair native DP).  lognormal10k has no
+# disputed pair: its truth places every read, so every line's pair is
+# in the truth clusters and the batched Smith-Waterman never runs;
+# filtered2k's repeat family gives 1,713 (padded to [1,713, 2,889] and
+# [1,713, 2,849]: 482 s in JAX on the CPU; its CLI 46 s).
+ROC_GOLDENS = {
+    "lognormal10k": dict(
+        tp=53070, fn=13089, tn=1988, fp=0, sensitivity=0.8021584364939011,
+        specificity=1.0, ppv=1.0, disputed=0, sw_sha256=None,
+        cli=["Estimated sensitivity:\t0.8022",
+             "Estimated specificity:\t1.0000", "Estimated PPV:\t 1.0000"]),
+    "filtered2k": dict(
+        tp=63463, fn=17716, tn=1697, fp=255, sensitivity=0.7817662203279173,
+        specificity=0.8693647540983607, ppv=0.9995, disputed=1713,
+        sw_sha256="afcb656e66f0313317156552e4cd176f"
+                  "2bf6ed067d5a9fff356ccc92b95cacc0",
+        cli=["Estimated sensitivity:\t0.7818",
+             "Estimated specificity:\t0.8694", "Estimated PPV:\t 0.9995"]),
+}
 
 
 def log(msg: str) -> None:
@@ -411,16 +460,24 @@ def repeat_mix(bench):
     return reads
 
 
-def filtered2k(bench, tmpdir: str):
-    """bench.bench_config_filtered's input: 2,048 reads x 2.9 kb from a
-    genome with an implanted repeat family, and its tf-idf filter file
-    (the genome's 4,000 most frequent 16-mers).  Returns (reads, path)."""
+def filtered2k_placed(bench):
+    """bench.bench_config_filtered's reads: 2,048 reads x 2.9 kb from a
+    genome with an implanted repeat family.  Returns (reads, placements,
+    genome_len, genome)."""
     n_reads = 2048
     genome_len = int(n_reads * bench.READ_LEN / 25.0)
     genome = bench.repeat_seeded_genome(genome_len, seed=bench.SEED + 2)
-    reads, _, _ = bench.make_reads_placed(n_reads, seed=bench.SEED + 2,
-                                          lognormal=False, genome=genome,
-                                          genome_len=genome_len)
+    reads, placements, _ = bench.make_reads_placed(
+        n_reads, seed=bench.SEED + 2, lognormal=False, genome=genome,
+        genome_len=genome_len)
+    return reads, placements, genome_len, genome
+
+
+def filtered2k(bench, tmpdir: str):
+    """bench.bench_config_filtered's input: filtered2k_placed's reads and
+    their tf-idf filter file (the genome's 4,000 most frequent 16-mers).
+    Returns (reads, path)."""
+    reads, _, _, genome = filtered2k_placed(bench)
     path = os.path.join(tmpdir, "kmers.txt")
     bench.write_filter_file(genome, 16, path)
     return reads, path
@@ -560,6 +617,102 @@ def canu_input(bench, tmpdir: str, n_reads: int):
     path = os.path.join(tmpdir, "kmers.txt")
     bench.write_filter_file(genome, 16, path, cutoff=0.0, top=40_000)
     return reads, blocks, path
+
+
+def roc_files(bench, tmpdir: str, reads, placements, genome_len, lines):
+    """The three files bench_config_lognormal hands EstimateROC: the truth
+    M4 (bench.write_truth_m4), the overlap lines and the reads as FASTA
+    numbered from 1.  Returns (truth, overlaps, fasta) paths."""
+    truth = os.path.join(tmpdir, "truth.m4")
+    ovls = os.path.join(tmpdir, "ovl.mhap")
+    fa = os.path.join(tmpdir, "reads.fa")
+    bench.write_truth_m4(placements, reads, truth, genome_len)
+    with open(ovls, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(fa, "w") as f:
+        f.writelines(f">{i + 1}\n{r}\n" for i, r in enumerate(reads))
+    return truth, ovls, fa
+
+
+# the eight outputs of sw_align_batch, in the order sw_sha256 hashes them
+SW_COLS = ("score", "q_end", "r_end", "q_begin", "r_begin", "matches",
+           "errors", "length")
+
+
+def sw_sha256(out) -> str:
+    """sha256 of sw_align_batch's eight [P] columns (numpy or torch), each
+    as little-endian int32, in SW_COLS order."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in SW_COLS:
+        v = out[k]
+        v = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+        h.update(v.astype("<i4").tobytes())
+    return h.hexdigest()
+
+
+def dna(rng, n: int) -> bytes:
+    import numpy as np
+
+    return bytes(np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)])
+
+
+def mutate_dna(rng, s: bytes, err: float = 0.1) -> bytes:
+    """tests/test_swalign.py's error model: insertions, deletions and
+    substitutions at err / 3 each."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    out = bytearray()
+    for ch in s:
+        x = rng.random()
+        if x < err / 3:
+            out.append(ch)
+            out.append(bases[rng.integers(0, 4)])
+        elif x < 2 * err / 3:
+            pass
+        elif x < err:
+            out.append(bases[rng.integers(0, 4)])
+        else:
+            out.append(ch)
+    return bytes(out)
+
+
+def sw_adversarial_pairs(seed: int = 7, B: int = 128):
+    """Ties and edges for kernel 5: identical, unrelated, homopolymer and
+    tandem-repeat runs (many co-optimal paths), N runs, lower case,
+    lengths 0, 1, 31, 32, 33 and B - 1, B, B + 1 (B: the kernel's rows a
+    stripe), qlen > rlen and the reverse, all in one batch of mixed
+    lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = dna(rng, 600)
+    return [
+        (g[:150], g[:150]),
+        (dna(rng, 140), dna(rng, 90)),
+        (b"A" * 70, b"A" * 45),
+        (b"A" * 40 + b"C" * 40, b"C" * 30 + b"A" * 50),
+        (b"ACGTTGCA" * 18, b"ACGTTGCA" * 11),
+        (b"CA" * 60, b"AC" * 45),
+        (b"ACG" * 40, mutate_dna(rng, b"ACG" * 40, 0.15)),
+        (b"N" * 50, b"N" * 33),
+        (g[:60] + b"N" * 20 + g[80:140], g[:140]),
+        (g[200:300].lower(), g[200:300]),
+        (b"", g[:40]),
+        (g[:40], b""),
+        (b"", b""),
+        (b"G", b"G"),
+        (b"G", b"T"),
+        (g[:31], g[:32]),
+        (g[:33], mutate_dna(rng, g[:33])),
+        (g[300:300 + B - 1], mutate_dna(rng, g[300:300 + B])),
+        (mutate_dna(rng, g[100:100 + B]), g[100:100 + B + 1]),
+        (g[:B + 1], g[40:B + 1]),
+        (mutate_dna(rng, g[:180]), g[20:90]),
+        (g[50:110], mutate_dna(rng, g[:200])),
+    ]
 
 
 def read_filter(path: str, no_tf: bool = False):
@@ -989,6 +1142,148 @@ def sharded_phase(bench, kern, add, launches, native_sha, run5, reads10k,
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
 
+def roc_phase(bench, kern, add, results, rate, roc_inputs,
+              tmpdir: str) -> None:
+    """Phase 12: kernel 5 against its plain version on the adversarial
+    set; EstimateROC as bench_config_lognormal runs it on lognormal10k and
+    on filtered2k, against the JAX package's goldens, the batched
+    Smith-Waterman on the card; kernel 5 timed on filtered2k's disputed
+    pairs; the tool's CLI as a subprocess."""
+    import torch
+
+    from mhap_tpu_torch.ops import swalign_kernels as swk
+    from mhap_tpu_torch.ops.swalign import pack_pairs
+    from mhap_tpu_torch.ops.swalign import sw_align_batch as sw_plain
+    from mhap_tpu_torch.tools.estimate_roc import EstimateROC
+
+    t12 = time.perf_counter()
+    dev = torch.device("cuda")
+    sw = swk.sw_align_batch
+
+    def cols(out):
+        return [out[k] for k in SW_COLS]
+
+    def check(name, args, reps=5):
+        """Kernel vs plain on args, bit for bit; both timed."""
+        got = sw(*args)
+        want = sw_plain(*args)
+        ql, rl = args[1].long(), args[3].long()
+        cells = int((ql * rl).sum())
+        t = dict(name=name, pairs=len(ql), cells=cells,
+                 err=max_err(cols(got), cols(want)),
+                 ms=time_ms(lambda: sw(*args), reps=reps),
+                 plain_ms=once_ms(lambda: sw_plain(*args)),
+                 **bound(args[0].numel() + args[2].numel() + 40 * len(ql),
+                         cells * SW_OPS_PER_CELL, rate))
+        t["gcups"] = cells / t["ms"] / 1e6
+        log(f"[12] kernel 5 on {name}: {t}")
+        return t
+
+    def to_card(pairs):
+        return [torch.from_numpy(x).to(dev) for x in pack_pairs(pairs)]
+
+    # (a) the CPU test's adversarial set
+    timings = [check("the adversarial set",
+                     to_card(sw_adversarial_pairs(B=swk.THREADS)))]
+    # (b) EstimateROC as bench_config_lognormal runs it, on the card; the
+    # kernel's outputs on the disputed pairs are made again after the
+    # launch counter is read
+    reset_counters(kern)
+    runs = {}
+    for name, (reads, places, glen, lines) in roc_inputs.items():
+        d = os.path.join(tmpdir, f"roc_{name}")
+        os.makedirs(d, exist_ok=True)
+        files = roc_files(bench, d, reads, places, glen, lines)
+        t0 = time.perf_counter()
+        roc = EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True,
+                          device="cuda")
+        roc.process_reference(files[0])
+        roc.load_fasta(files[2])
+        roc.process_overlaps(files[1])
+        roc.estimate_sensitivity()
+        roc.estimate_specificity()
+        t1 = time.perf_counter()
+        disputed = []
+        batch = roc._compute_dp_batch
+
+        def record(pairs, batch=batch, disputed=disputed):
+            disputed.extend(pairs)
+            return batch(pairs)
+
+        roc._compute_dp_batch = record
+        roc.estimate_ppv(batch_dp=True)
+        torch.cuda.synchronize()
+        runs[name] = (roc, disputed, time.perf_counter() - t1, t1 - t0)
+        if name == "lognormal10k":
+            # the per-pair path (native library) on the same stream
+            per = EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True,
+                              device="cuda")
+            per.process_reference(files[0])
+            per.load_fasta(files[2])
+            per.process_overlaps(files[1])
+            per.estimate_sensitivity()
+            per.estimate_specificity()
+            per.estimate_ppv(batch_dp=False)
+            log(f"[12] (b) lognormal10k, batch_dp=False (per pair, native):"
+                f" PPV {per.ppv} (batched {roc.ppv})")
+            # (c) the tool's entry point, per-pair DP as in JAX
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "mhap_tpu_torch.tools.estimate_roc",
+                 *files, "500", "2000", "true"], cwd=REPO,
+                capture_output=True, text=True)
+            ok = (r.returncode == 0 and r.stdout.splitlines()
+                  == ROC_GOLDENS[name]["cli"])
+            log(f"[12] (c) python -m mhap_tpu_torch.tools.estimate_roc on "
+                f"lognormal10k: {r.stdout.splitlines()}, equal to the JAX "
+                f"tool's: {ok} ({time.perf_counter() - t0:.1f} s, process "
+                f"included)")
+            if not ok:
+                raise AssertionError(f"estimate_roc CLI: {r.stderr[-2000:]}")
+    counts = read_counters(kern)
+    add(counts, ("sw_align_batch",))
+    batches = {}
+    for name, (roc, disputed, t_ppv, t_load) in runs.items():
+        want = ROC_GOLDENS[name]
+        got = dict(tp=roc.tp, fn=roc.fn, tn=roc.tn, fp=roc.fp,
+                   sensitivity=roc.sensitivity(),
+                   specificity=roc.specificity(), ppv=roc.ppv,
+                   disputed=len(disputed), sw_sha256=None)
+        extra = ""
+        if disputed:
+            args = batches[name] = roc.dp_batch_inputs(disputed)[0]
+            got["sw_sha256"] = sw_sha256(sw(*args))
+            ql, rl = (a.long() for a in args[1::2])
+            extra = (f"; qlen x rlen: largest {int((ql * rl).max())}, sum "
+                     f"{int((ql * rl).sum())}; [P, n], [P, m] "
+                     f"{list(args[0].shape)}, {list(args[2].shape)}")
+        ok = all(got[k] == want[k] for k in got)
+        log(f"[12] (b) EstimateROC on {name} (batch_dp=True, cuda): {got}, "
+            f"equal to the JAX goldens: {ok}; load, sensitivity and "
+            f"specificity {t_load:.2f} s, PPV {t_ppv:.3f} s{extra}")
+        if not ok:
+            raise AssertionError(f"EstimateROC on {name}: {got} != {want}")
+    log(f"[12] (b) launches {counts}; the JAX tool's per-pair PPV on "
+        f"filtered2k: {ROC_GOLDENS['filtered2k']['cli'][2]!r}")
+    # (a) kernel 5 at the main path's shape (filtered2k's disputed pairs)
+    # and on its first 8 pairs cut to 2,000 bases
+    args = batches["filtered2k"]
+    main_t = check("filtered2k's disputed pairs", args, reps=3)
+    cut = [args[0][:8, :2000].contiguous(), args[1][:8].clamp(max=2000),
+           args[2][:8, :2000].contiguous(), args[3][:8].clamp(max=2000)]
+    timings += [main_t, check("filtered2k's first 8 disputed pairs, cut to "
+                              "2,000 bases", cut)]
+    err = max(t["err"] for t in timings)
+    results["sw_align_batch"] = dict(
+        err=err, ms=main_t["ms"], plain_ms=main_t["plain_ms"],
+        library_ms=None, bound_ms=main_t["bound_ms"],
+        bound_by=main_t["bound_by"], timings=timings)
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+    if err:
+        raise AssertionError(f"kernel 5 differs from its plain version: "
+                             f"{timings}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1002,6 +1297,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import bench
+    from mhap_tpu_torch.cli.options import PRESETS
     from mhap_tpu_torch.ops import _build
     from mhap_tpu_torch.ops import merge as mg
     from mhap_tpu_torch.ops import minhash as mh
@@ -1015,6 +1311,7 @@ def main() -> int:
     from mhap_tpu_torch.ops.scorer import COLS, score_pairs_ref
     from mhap_tpu_torch.ops.scorer_kernels import occupancy, score_pairs
     from mhap_tpu_torch.ops.scorer_kernels import plan as scorer_plan
+    from mhap_tpu_torch.ops.swalign_kernels import sw_align_batch
     from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
     from mhap_tpu_torch.pipeline.overlapper import (TorchOverlapper,
                                                     _rc_codes,
@@ -1023,8 +1320,10 @@ def main() -> int:
     dev = torch.device("cuda")
     kern = {"min_reduce_w1": min_reduce_w1,
             "weighted_min_reduce": weighted_min_reduce,
-            "score_pairs": score_pairs, "merge2": merge2}
-    path_kernels = ("min_reduce_w1", "weighted_min_reduce", "score_pairs")
+            "score_pairs": score_pairs, "merge2": merge2,
+            "sw_align_batch": sw_align_batch}
+    path_kernels = ("min_reduce_w1", "weighted_min_reduce", "score_pairs",
+                    "sw_align_batch")
     tmp = tempfile.TemporaryDirectory()
     # ---- phase 1: card, versions, build ----
     smi = nvidia_smi()
@@ -1256,6 +1555,24 @@ def main() -> int:
     if len(lines) != EXPECTED_PRIMARY or sha != nat_sha:
         raise AssertionError("primary workload line set differs")
     native_sha = {"primary": nat_sha}
+    # the CLI's presets in this process, against native at the flags each
+    # expands to
+    fa3 = write_fasta(os.path.join(tmp.name, "primary3.fa"), reads)
+    for st in (2, 3):
+        flags = [str(x) for kv in PRESETS[st].items() for x in kv]
+        _, n_nat, threads, nat_sha, nat_t = bench.bench_native(
+            reads, extra=flags)
+        reset_counters(kern)
+        lines, secs = cli_in_process(["-s", fa3, "--settings", st])
+        counts = read_counters(kern)
+        add(counts, ("min_reduce_w1", "score_pairs"))
+        sha = bench.lineset_sha256(lines)
+        log(f"[3] CLI -s primary.fa --settings {st} ({' '.join(flags)}): "
+            f"{len(lines)} lines (native {n_nat}), sha256 {sha[:16]} native "
+            f"{nat_sha[:16]}, launches {counts}, {secs:.2f} s in process; "
+            f"native {nat_t} s on {threads} threads")
+        if sha != nat_sha or not lines:
+            raise AssertionError(f"CLI --settings {st} differs from native")
 
     # ---- phase 4: repeat mix ----
     mix = repeat_mix(bench)
@@ -1284,7 +1601,8 @@ def main() -> int:
         raise AssertionError("repeat mix line set or kernel 2 differs")
 
     # ---- phase 5: lognormal10k ----
-    reads10k, _, _ = bench.make_reads_placed(10_000, seed=bench.SEED + 1)
+    reads10k, places10k, glen10k = bench.make_reads_placed(
+        10_000, seed=bench.SEED + 1)
     _, n_nat, threads, nat_sha, nat_t = bench.bench_native(reads10k)
     ov = TorchOverlapper(device="cuda")
     lines, counts, cold, steady, peak = run_main_path(ov, reads10k, kern)
@@ -1292,6 +1610,7 @@ def main() -> int:
     sha = bench.lineset_sha256(lines)
     native_sha["lognormal10k"] = nat_sha
     run5 = dict(stats=dict(ov.stats), cold=cold, steady=steady, peak=peak)
+    roc_inputs = {"lognormal10k": (reads10k, places10k, glen10k, lines)}
     log(f"[5] lognormal10k: {len(lines)} lines (native {n_nat}), sha256 "
         f"{sha} native {nat_sha}, launches {counts}; cold {cold:.3f} s, "
         f"steady {steady:.3f} s, peak {mib(peak)}; native {nat_t} s on "
@@ -1369,6 +1688,8 @@ def main() -> int:
                          capture_output=True, text=True, check=True)
     cli_s = time.perf_counter() - t0
     cli_lines = sorted(cli.stdout.splitlines())
+    _, places_f, glen_f, _ = filtered2k_placed(bench)
+    roc_inputs["filtered2k"] = (reads_f, places_f, glen_f, lines)
     log(f"[6] filtered2k: {len(lines)} lines (native -f {n_nat}), sha256 "
         f"{sha} native {nat_sha}, launches {counts}; cold {cold:.3f} s, "
         f"steady {steady:.3f} s, peak {mib(peak)}; native {nat_t} s on "
@@ -1754,6 +2075,10 @@ def main() -> int:
     sharded_phase(bench, kern, add, launches, native_sha, run5, reads10k,
                   reads_f, fc, tmp.name)
 
+    # ---- phase 12: EstimateROC and kernel 5 ----
+    roc_phase(bench, kern, add, results, rate, roc_inputs, tmp.name)
+    del roc_inputs
+
     for name in path_kernels:
         if launches[name] == 0:
             raise AssertionError(f"{name} never ran on a path: {launches}")
@@ -1773,7 +2098,10 @@ def main() -> int:
            "merge2": ("mhap_tpu_torch/csrc/merge.cu",
                       "mhap_tpu/ops/merge_pallas.py:117 (no caller on the "
                       "overlap path, as in JAX: launches are phase 2's "
-                      "checks)")}
+                      "checks)"),
+           "sw_align_batch": ("mhap_tpu_torch/csrc/swalign.cu",
+                              "mhap_tpu/ops/swalign.py:37 (a lax.scan, not "
+                              "a Pallas kernel)")}
     entries = [
         {"name": n, "route": "cuda", "source": src[n][0],
          "replaces": src[n][1], "launches": launches[n],

@@ -52,6 +52,8 @@ SIGNATURES = {
     "mhap_score_pairs_occupancy": [_I, _P],
     "mhap_merge2": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "mhap_merge2_occupancy": [_I, _I, _P],
+    "mhap_sw_align_batch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

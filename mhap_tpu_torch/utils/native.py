@@ -1,7 +1,8 @@
 """ctypes binding of the repository's native C++ library
 (``native/build/libmhapnative.so``), built with ``make -C native`` on
-first use.  The port takes one function from it, the bulk M4 formatter;
-``library()`` hands the loaded library to callers that declare other
+first use.  The port takes two functions from it, the bulk M4 formatter
+and the local Smith-Waterman of EstimateROC's per-pair adjudication
+(native/sw.cc); ``library()`` hands the loaded library to callers that declare other
 entries themselves (chip_smoke.py's native scorer check).
 """
 
@@ -28,6 +29,11 @@ def library() -> ctypes.CDLL:
     lib.mhap_format_m4.argtypes = [ctypes.c_void_p] * 12 + [
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
     lib.mhap_format_m4.restype = ctypes.c_longlong
+    lib.mhap_sw_align.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.mhap_sw_align.restype = ctypes.c_int
     return lib
 
 
@@ -52,3 +58,25 @@ def format_m4(qid, cid, err, raw, qrc, a1, a2, ql, crc, b1, b2, cl):
     if total < 0:
         raise RuntimeError("mhap_format_m4 buffer overflow")
     return buf[:total].tobytes().decode("ascii").split("\n")
+
+
+def sw_align(query: bytes, ref: bytes, match: int = 2, mismatch: int = -2,
+             gap_open: int = 2, gap_extend: int = 1, band: int = -1) -> dict:
+    """Local affine-gap alignment (native/sw.cc mhap_sw_align): score,
+    0-based inclusive begin/end coordinates, matches, errors, length (M+I+D
+    columns) and identity = 1 - errors / length."""
+    q = np.frombuffer(query, dtype=np.uint8)
+    r = np.frombuffer(ref, dtype=np.uint8)
+    out = np.zeros(8, dtype=np.int64)
+    rc = library().mhap_sw_align(q.ctypes.data, len(q), r.ctypes.data,
+                                 len(r), match, mismatch, gap_open,
+                                 gap_extend, band, out.ctypes.data)
+    if rc != 0:
+        raise RuntimeError("mhap_sw_align failed")
+    score, qb, qe, rb, re_, matches, errors, length = (int(x) for x in out)
+    identity = 1.0 - errors / length if length > 0 else 0.0
+    return {
+        "score": score, "q_begin": qb, "q_end": qe, "r_begin": rb,
+        "r_end": re_, "matches": matches, "errors": errors,
+        "length": length, "identity": identity,
+    }

@@ -1,7 +1,8 @@
 """The port stands without JAX and without the JAX package: imports, a
 small CPU run (unfiltered, filtered, a --supress-noise 2 sketch with
-the bloom filter through a .dat file, and a one-rank sharded run) with
-both blocked, an import scan
+the bloom filter through a .dat file, a one-rank sharded run, and an
+EstimateROC estimate whose disputed pair goes through the batched
+Smith-Waterman) with both blocked, an import scan
 of its sources, the device check, and chip_smoke.py's refusal to run
 without a GPU or the repo."""
 
@@ -61,8 +62,34 @@ from mhap_tpu_torch.parallel import comm
 from mhap_tpu_torch.parallel.sharded import ShardedOverlapper
 with comm.single("gloo", "cpu") as c:
     assert ShardedOverlapper(c, cfg).overlap_self(reads) == lines
+from mhap_tpu_torch.ops.swalign_kernels import sw_align_batch
+from mhap_tpu_torch.tools.estimate_roc import EstimateROC
+with tempfile.TemporaryDirectory() as td:
+    fa, truth, ovl = (os.path.join(td, n) for n in ("r.fa", "t.m4", "o.mhap"))
+    with open(fa, "w") as f:
+        f.writelines(f">{i + 1}\n{r}\n" for i, r in enumerate(reads))
+    with open(truth, "w") as f:  # read 1 (genome 0) placed at 20000
+        f.writelines(f"{i + 1} chr1 -2500 95.0 0 0 2500 2500 0 {s} "
+                     f"{s + 2500} 30000 254\n"
+                     for i, s in enumerate((20000, 700, 1500, 3000)))
+    with open(ovl, "w") as f:  # 1 kb of each true overlap
+        f.write("1 2 0.1 10 0 700 1700 2500 0 0 1000 2500\n"
+                "2 3 0.1 10 0 800 1800 2500 0 0 1000 2500\n")
+    roc = EstimateROC(min_ovl_len=200, num_trials=10, do_dp=True,
+                      device="cpu")
+    roc.process_reference(truth)
+    roc.load_fasta(fa)
+    roc.process_overlaps(ovl)
+    roc.estimate_sensitivity()
+    roc.estimate_specificity()
+    batch, seen = roc._compute_dp_batch, []
+    roc._compute_dp_batch = lambda pairs: (seen.append(len(pairs)),
+                                           batch(pairs))[1]
+    roc.estimate_ppv(batch_dp=True)  # pair 1-2 disputed, then rescued
+assert seen and seen[0] > 0 and roc.ppv == 1.0, (seen, roc.ppv)
+assert roc.tp + roc.fn > 0 and roc.tn + roc.fp > 0
 assert (min_reduce_w1.launches, weighted_min_reduce.launches,
-        score_pairs.launches) == (0, 0, 0)
+        score_pairs.launches, sw_align_batch.launches) == (0, 0, 0, 0)
 assert not any(m.split(".")[0] in ("jax", "mhap_tpu")
                and sys.modules[m] is not None for m in sys.modules)
 print(len(names), len(lines))
