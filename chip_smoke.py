@@ -109,16 +109,28 @@ at once), then:
      native library) beside it, and the tool's CLI as a subprocess, its
      stdout equal to the JAX tool's; kernel 5 timed on filtered2k's
      disputed pairs and on the first 8 cut to 2,000 bases, bit-equal to
-     its plain version on both, with its bound and GCUPS.
+     its plain version on both, with its bound and GCUPS;
+ 13. kernel 6, the bit-sketch similarity matrix (csrc/bits.cu), bit-equal
+     to its plain version on the CPU test's adversarial set, on the 1-bit
+     MinHash sketches of the primary reads (sketch_reads, then the last
+     bit of each of the 512 slots packed MSB-first: [2,048, 8] uint64,
+     and its [2,048, 16] uint32 view, all against all, through
+     sketches/bits.bit_similarity_matrix) and on [8,192, 8] x [8,192, 8]
+     uint64 words of BITS_SEED, each uint64 count equal to a numpy
+     popcount, timed with its bound over the card's popcount rate; then
+     ``--backend oracle`` through the CLI as a subprocess on the first
+     ORACLE_READS primary reads, its line set's sha256 equal to the
+     device CLI's and the native binary's on the same file.
 Every launch counter is set to 0 right before each main-path run of
-phases 3-12 and read right after (each rank of phase 11's
+phases 3-13 and read right after (each rank of phase 11's
 launches does so itself); a kernel of a path that did not launch
 there fails the run, and so does a device-memory path of phase 9 that
 phase 9's CLI runs did not launch.  The bound of each kernel is the
 larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
-integer operations over the card's INT32 rate.  The entries of kernels
-2 and 3 also list their time and bound at each shape timed
+integer operations over the card's INT32 rate (kernel 6: its popcounts
+over the card's popcount rate).  The entries of kernels
+2, 3, 5 and 6 also list their time and bound at each shape timed
 (``timings``); the line also lists the device-memory paths of phase 9,
 at their first shape past the shared-memory limit.  The last
 stdout lines are the kernels' JSON line, the card's nvidia-smi line and
@@ -148,6 +160,13 @@ EXPECTED_LOGNORMAL10K = 158246
 EXPECTED_FILTERED2K = 286410
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64    # Hopper SM (NVIDIA H100 white paper)
+# population-count results a clock on an SM of compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput)
+POPC_PER_SM_CLOCK = 16
+# phase 13: the oracle CLI's reads (the first of the primary workload),
+# and the seed of kernel 6's [8,192, 8] words
+ORACLE_READS = 256
+BITS_SEED = 4246
 # INT32 operations per xorshift64 stream step of csrc/minhash.cu: three
 # 64-bit shifts and three xors on 32-bit halves (12), the signed 64-bit
 # compare and select of the running minimum (4)
@@ -232,6 +251,16 @@ def int32_ops_per_s() -> float:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def popc_per_s() -> float:
+    """SMs x 16 population counts a clock x the card's maximum SM
+    clock."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return sms * POPC_PER_SM_CLOCK * mhz * 1e6
 
 
 def bound(nbytes: float, nops: float, rate: float) -> dict:
@@ -713,6 +742,35 @@ def sw_adversarial_pairs(seed: int = 7, B: int = 128):
         (mutate_dna(rng, g[:180]), g[20:90]),
         (g[50:110], mutate_dna(rng, g[:200])),
     ]
+
+
+def bits_adversarial(seed: int = 13):
+    """Word pairs (a [NA, W], b [NB, W]) for kernel 6: NA and NB in {1,
+    63, 64, 65} (a tile of 64 rows, one short of it, one past it), W in
+    {1, 3, 33} (33 is past a 16-word chunk twice), uint32 and uint64
+    words; random words, with the first row of a all zeros and of b all
+    ones, the last row of a all ones and of b all zeros, and the top bit
+    set in every word of every third row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for dt in (np.uint32, np.uint64):
+        ones = np.iinfo(dt).max
+        top = dt(1) << dt(8 * np.dtype(dt).itemsize - 1)
+        for w in (1, 3, 33):
+            for na in (1, 63, 64, 65):
+                for nb in (1, 63, 64, 65):
+                    a = rng.integers(0, ones, (na, w), dtype=dt,
+                                     endpoint=True)
+                    b = rng.integers(0, ones, (nb, w), dtype=dt,
+                                     endpoint=True)
+                    a[1::3] |= top
+                    b[2::3] |= top
+                    a[-1], b[-1] = ones, 0
+                    a[0], b[0] = 0, ones
+                    out.append((a, b))
+    return out
 
 
 def read_filter(path: str, no_tf: bool = False):
@@ -1284,6 +1342,155 @@ def roc_phase(bench, kern, add, results, rate, roc_inputs,
                              f"{timings}")
 
 
+def np_xor_popcount(a, b, rows: int = 256):
+    """numpy popcount(a[i] ^ b[j]) summed over the words, int64 [NA, NB],
+    a block of rows at a time (np.bitwise_count: numpy 2.0 on)."""
+    import numpy as np
+
+    out = np.empty((len(a), len(b)), np.int64)
+    for r in range(0, len(a), rows):
+        x = a[r:r + rows, None, :] ^ b[None, :, :]
+        out[r:r + rows] = np.bitwise_count(x).sum(-1, dtype=np.int64)
+    return out
+
+
+def kernel6_checks(kern, add, results, reads) -> None:
+    """Phase 13 (a): kernel 6 against its plain version on the
+    adversarial set, on the 1-bit MinHash sketches of the primary reads'
+    main-path sketches (all against all, uint64 words and their uint32
+    view) and on [8,192, 8] uint64 words of BITS_SEED, the uint64 counts
+    against a numpy popcount, each timed with its bound."""
+    import numpy as np
+    import torch
+
+    from mhap_tpu_torch.ops.bits import bit_similarity_ref, words
+    from mhap_tpu_torch.ops.bits_kernels import bit_similarity
+    from mhap_tpu_torch.pipeline.overlapper import TorchOverlapper
+    from mhap_tpu_torch.sketches.bits import (bit_similarity_matrix,
+                                              pack_last_bits_msb_first)
+
+    dev = torch.device("cuda")
+    rate = popc_per_s()
+    log(f"[13] popcount rate {rate / 1e12:.3f} T/s")
+
+    def same(got, want):
+        return bool(torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)))
+
+    def counts_ok(a, b, got):
+        """uint64 words: round((1 - out) * 64W) is numpy's popcount."""
+        if a.dtype != np.uint64:
+            return True
+        c = np.rint((1.0 - got.cpu().double().numpy()) * 64 * a.shape[1])
+        return bool((c.astype(np.int64) == np_xor_popcount(a, b)).all())
+
+    # the CPU test's adversarial set
+    bad = []
+    cases = bits_adversarial()
+    for i, (a, b) in enumerate(cases):
+        ka, kb = words(a, dev), words(b, dev)
+        got = bit_similarity(ka, kb)
+        if not (same(got, bit_similarity_ref(ka, kb))
+                and counts_ok(a, b, got)):
+            bad.append((i, a.dtype.name, a.shape, b.shape))
+    log(f"[13] (a) kernel 6 on the adversarial set ({len(cases)} pairs): "
+        f"{bad or 'bit-equal to plain, uint64 counts equal to numpy'}")
+
+    def check(name, a, b, reps=5):
+        ka, kb = words(a, dev), words(b, dev)
+        got = bit_similarity(ka, kb)
+        bits = 8 * a.dtype.itemsize
+        na, nb, w = len(a), len(b), a.shape[1]
+        t = dict(name=name, shape=[na, nb, w], word_bits=bits,
+                 equal=same(got, bit_similarity_ref(ka, kb)),
+                 counts_equal=counts_ok(a, b, got),
+                 ms=time_ms(lambda: bit_similarity(ka, kb), reps=reps),
+                 plain_ms=once_ms(lambda: bit_similarity_ref(ka, kb)),
+                 **bound(4 * na * nb + (na + nb) * w * bits // 8,
+                         na * nb * w * bits // 32, rate))
+        t["ratio"] = t["ms"] / t["bound_ms"]
+        t["err"] = 0 if t["equal"] and t["counts_equal"] else 1
+        log(f"[13] (a) kernel 6 on {name}: {t}")
+        return t
+
+    # the main path: the primary reads' sketches, packed as
+    # MinHashBitSketch packs them, compared all against all
+    reset_counters(kern)
+    ov = TorchOverlapper(device="cuda")
+    store = ov.sketch_reads(reads)
+    mh = store.host("minhash")[store.header_id != 0]
+    bits64 = pack_last_bits_msb_first(mh)
+    bits32 = bits64.view(np.uint32)
+    sim64 = bit_similarity_matrix(bits64, bits64)
+    sim32 = bit_similarity_matrix(bits32, bits32)
+    torch.cuda.synchronize()
+    counts = read_counters(kern)
+    add(counts, ("min_reduce_w1", "bit_similarity_matrix"))
+    n = len(mh)
+    off = float(sim64.sum() - sim64.diagonal().sum()) / (n * n - n)
+    same64 = bool(torch.equal(sim64, sim32))
+    log(f"[13] (a) main path: sketch_reads of {len(reads)} primary reads, "
+        f"{list(mh.shape)} MinHash -> {list(bits64.shape)} uint64 bit "
+        f"sketches, bit_similarity_matrix on uint64 and uint32 words: "
+        f"launches {counts}; uint64 and uint32 equal: {same64}; mean "
+        f"off-diagonal similarity {off:.4f}")
+    timings = [check(f"the primary reads' 1-bit sketches "
+                     f"{list(bits64.shape)} uint64", bits64, bits64),
+               check(f"the same as uint32 {list(bits32.shape)}", bits32,
+                     bits32)]
+    rng = np.random.default_rng(BITS_SEED)
+    big = rng.integers(0, np.iinfo(np.uint64).max, (2, 8192, 8),
+                       dtype=np.uint64, endpoint=True)
+    timings.append(check("[8,192, 8] x [8,192, 8] uint64 words of a seed",
+                         big[0], big[1]))
+    err = int(bool(bad)) + sum(t["err"] for t in timings) + (not same64)
+    main_t = timings[0]
+    results["bit_similarity_matrix"] = dict(
+        err=err, ms=main_t["ms"], plain_ms=main_t["plain_ms"],
+        library_ms=None, bound_ms=main_t["bound_ms"],
+        bound_by=main_t["bound_by"], timings=timings)
+    if err:
+        raise AssertionError(f"kernel 6 differs: {bad}, {timings}")
+
+
+def bits_phase(bench, kern, add, results, reads, tmpdir: str) -> None:
+    """Phase 13: kernel6_checks, with ``--backend oracle`` through the
+    CLI on the first ORACLE_READS reads as a subprocess beside it (host
+    numpy for ~20 s), then its line set against the device CLI's and the
+    native binary's on the same file."""
+    t13 = time.perf_counter()
+    sub = reads[:ORACLE_READS]
+    fa = write_fasta(os.path.join(tmpdir, "oracle.fa"), sub)
+    oracle = subprocess.Popen(
+        [sys.executable, "-m", "mhap_tpu_torch.cli.main", "-s", fa,
+         "--backend", "oracle"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        kernel6_checks(kern, add, results, reads)
+        d_lines, d_secs = cli_process(["-s", fa])
+        out, errs = oracle.communicate()
+    finally:
+        if oracle.poll() is None:
+            oracle.kill()
+            oracle.communicate()
+    if oracle.returncode != 0:
+        raise AssertionError(f"--backend oracle exited {oracle.returncode}:"
+                             f" {errs[-3000:]}")
+    o_lines = sorted(out.splitlines())
+    o_secs = [l for l in errs.splitlines() if l.startswith("Total time")]
+    _, n_nat, threads, nat_sha, nat_t = bench.bench_native(sub)
+    o_sha, d_sha = (bench.lineset_sha256(x) for x in (o_lines, d_lines))
+    log(f"[13] (b) --backend oracle on {len(sub)} primary reads: "
+        f"{len(o_lines)} lines, sha256 {o_sha[:16]}, {o_secs} (its own "
+        f"clock, beside (a)); device CLI {len(d_lines)} lines, sha256 "
+        f"{d_sha[:16]}, {d_secs:.1f} s (process included); native {n_nat} "
+        f"lines, sha256 {nat_sha[:16]}, {nat_t} s on {threads} threads")
+    if not o_lines or not o_sha == d_sha == nat_sha:
+        raise AssertionError("--backend oracle differs from the device CLI "
+                             "or native")
+    log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1299,6 +1506,7 @@ def main() -> int:
     import bench
     from mhap_tpu_torch.cli.options import PRESETS
     from mhap_tpu_torch.ops import _build
+    from mhap_tpu_torch.ops.bits_kernels import bit_similarity
     from mhap_tpu_torch.ops import merge as mg
     from mhap_tpu_torch.ops import minhash as mh
     from mhap_tpu_torch.ops import murmur3
@@ -1321,9 +1529,10 @@ def main() -> int:
     kern = {"min_reduce_w1": min_reduce_w1,
             "weighted_min_reduce": weighted_min_reduce,
             "score_pairs": score_pairs, "merge2": merge2,
-            "sw_align_batch": sw_align_batch}
+            "sw_align_batch": sw_align_batch,
+            "bit_similarity_matrix": bit_similarity}
     path_kernels = ("min_reduce_w1", "weighted_min_reduce", "score_pairs",
-                    "sw_align_batch")
+                    "sw_align_batch", "bit_similarity_matrix")
     tmp = tempfile.TemporaryDirectory()
     # ---- phase 1: card, versions, build ----
     smi = nvidia_smi()
@@ -2079,6 +2288,9 @@ def main() -> int:
     roc_phase(bench, kern, add, results, rate, roc_inputs, tmp.name)
     del roc_inputs
 
+    # ---- phase 13: kernel 6 and --backend oracle ----
+    bits_phase(bench, kern, add, results, reads, tmp.name)
+
     for name in path_kernels:
         if launches[name] == 0:
             raise AssertionError(f"{name} never ran on a path: {launches}")
@@ -2101,7 +2313,11 @@ def main() -> int:
                       "checks)"),
            "sw_align_batch": ("mhap_tpu_torch/csrc/swalign.cu",
                               "mhap_tpu/ops/swalign.py:37 (a lax.scan, not "
-                              "a Pallas kernel)")}
+                              "a Pallas kernel)"),
+           "bit_similarity_matrix": (
+               "mhap_tpu_torch/csrc/bits.cu",
+               "mhap_tpu/sketches/bits.py:137 (jax.lax.population_count, "
+               "not a Pallas kernel)")}
     entries = [
         {"name": n, "route": "cuda", "source": src[n][0],
          "replaces": src[n][1], "launches": launches[n],

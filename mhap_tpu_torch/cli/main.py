@@ -25,8 +25,12 @@ rank a GPU:
 Under torchrun (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``) the ranks join
 through ``env://`` with NCCL, rank r on ``cuda:LOCAL_RANK``; without that
 environment the run is one rank.  Rank 0 prints the lines and the stats
-block, its stats summed over the ranks.  ``--backend oracle`` is not
-ported and stops with an error.
+block, its stats summed over the ranks.
+
+``--backend oracle`` runs the numpy reference (``oracle/pipeline.py``)
+on the host, as the JAX CLI does: it touches no device and runs on a
+machine without a GPU.  It reads FASTA/FASTQ only (no ``.dat``, no
+``-p``), and its stats block is the one line ``Total matches found: N``.
 """
 
 from __future__ import annotations
@@ -45,14 +49,10 @@ from ..io.formats import write_lines
 from .options import PRESETS, _load_reads, build_options, options_to_cfg
 
 
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to mhap_tpu_torch yet; use "
-                      "python -m mhap_tpu.cli.main")
-
-
 def main(argv=None, device="cuda", comm=None) -> int:
     """Runs the command line ``argv``; the overlapper runs on ``device``
-    (the GPU unless a caller, such as a test, asks for the CPU).
+    (the GPU unless a caller, such as a test, asks for the CPU), except
+    under ``--backend oracle``, which runs on the host.
     ``--backend sharded`` runs on the ranks of ``comm`` (a
     ``parallel.comm.Comm``) if given, else on those ``sharded_comm``
     joins."""
@@ -105,8 +105,9 @@ def main(argv=None, device="cuda", comm=None) -> int:
             print(msg)
             return 1
     backend = o.get("--backend").value
-    if backend not in ("device", "sharded"):
-        raise _not_ported(f"--backend {backend}")
+    if backend not in ("device", "sharded", "oracle"):
+        raise SystemExit(f"unknown --backend {backend}: device, sharded or "
+                         "oracle")
     own = backend == "sharded" and comm is None
     if own:
         comm = sharded_comm(device)
@@ -118,12 +119,15 @@ def main(argv=None, device="cuda", comm=None) -> int:
             print("Running with these settings:", file=sys.stderr)
             print(o, file=sys.stderr)
             t_total = time.time()
-            ov = build_overlapper(o, device, comm if backend == "sharded"
-                                  else None)
-            if p_file:
-                run_precompute(o, ov)
+            if backend == "oracle":
+                run_oracle(o)
             else:
-                run_overlap(o, ov)
+                ov = build_overlapper(o, device, comm if backend == "sharded"
+                                      else None)
+                if p_file:
+                    run_precompute(o, ov)
+                else:
+                    run_overlap(o, ov)
             print(f"Total time (s): {time.time() - t_total}",
                   file=sys.stderr)
     finally:
@@ -157,10 +161,15 @@ def sharded_comm(device="cuda"):
                       init_method="env://")
 
 
-def load_filter(o):
-    """The ``-f`` file as an ``io.filter.FrequencyCounts``, or None
-    (mhap_tpu/cli/main.py load_filter)."""
-    from ..io.filter import FrequencyCounts
+def load_filter(o, oracle: bool = False):
+    """The ``-f`` file as an ``io.filter.FrequencyCounts`` (the device
+    path's reader), or as the oracle's ``oracle.filter.FrequencyCounts``
+    when ``oracle``; None without ``-f`` (mhap_tpu/cli/main.py
+    load_filter)."""
+    if oracle:
+        from ..oracle.filter import FrequencyCounts
+    else:
+        from ..io.filter import FrequencyCounts
 
     path = o.get("-f").value
     if not path:
@@ -277,6 +286,56 @@ def run_overlap(o, ov) -> None:
           f"{jdiv(matches, hit) * 100.0}", file=sys.stderr)
     print("Average % of hashed sequences fully compared that are "
           f"matches: {jdiv(matches, compared) * 100.0}", file=sys.stderr)
+
+
+def run_oracle(o) -> None:
+    """--backend oracle: the self/query loop of mhap_tpu.cli.main.
+    run_overlap (:331-450) on the numpy reference pipeline, with its
+    refusals of ``.dat`` input and ``-p``."""
+    from ..oracle import pipeline as oracle
+
+    if o.get("-p").value:
+        if not os.path.isdir(o.get("-q").value):
+            raise SystemExit("Target directory doesn't exit.")
+        raise SystemExit("-p requires the device backend")
+    s_file, q_file = o.get("-s").value, o.get("-q").value
+    q_files = list_sequence_files(q_file) if q_file else []
+    if any(f.endswith(".dat") for f in [s_file, *q_files]):
+        raise SystemExit(".dat input requires the device backend")
+    cfg = options_to_cfg(o)
+    kmer_filter = load_filter(o, oracle=True)
+    store_full_id = o.get("--store-full-id").value
+    no_self, paf = o.get("--no-self").value, o.get("--paf").value
+    t0 = time.time()
+    print("Processing files for storage in reverse index...",
+          file=sys.stderr)
+    headers, reads = _load_reads(s_file, store_full_id)
+    box = oracle.sketch_all(reads, cfg, kmer_filter, headers,
+                            do_rc=not o.get("--no-rc").value)
+    print(f"Processed {len(box)} unique sequences (fwd and rev).",
+          file=sys.stderr)
+    print(f"Time (s) to read and hash from file: {time.time() - t0}",
+          file=sys.stderr)
+    index = oracle.OracleIndex(cfg)
+    for sk in box:
+        index.add(sk)
+    out = sys.stdout
+    n_lines = 0
+    if not no_self or not q_file:
+        lines = [line for sk in box if sk.is_fwd
+                 for line in index.find_matches(sk, to_self=True)]
+        n_lines += write_lines(sorted(lines), out, paf)
+    offset = len(box) // 2
+    for qf in q_files:
+        qh, qreads = _load_reads(qf, store_full_id)
+        queries = oracle.sketch_all(qreads, cfg, kmer_filter, qh,
+                                    offset=offset, do_rc=False)
+        lines = [line for sk in queries
+                 for line in index.find_matches(sk, to_self=False)]
+        n_lines += write_lines(sorted(lines), out, paf)
+        offset += len(queries)
+    out.flush()
+    print(f"Total matches found: {n_lines}", file=sys.stderr)
 
 
 def run_precompute(o, ov) -> None:

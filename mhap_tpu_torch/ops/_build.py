@@ -54,6 +54,7 @@ SIGNATURES = {
     "mhap_merge2_occupancy": [_I, _I, _P],
     "mhap_sw_align_batch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _P],
+    "mhap_bit_similarity": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()

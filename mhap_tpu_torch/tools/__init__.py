@@ -1,1 +1,2 @@
-"""Validation tools of the port (EstimateROC)."""
+"""Validation and simulation tools of the port (EstimateROC,
+KmerStatSimulator, GetHistogramStats, AlignmentTry)."""

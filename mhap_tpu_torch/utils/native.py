@@ -1,8 +1,9 @@
 """ctypes binding of the repository's native C++ library
 (``native/build/libmhapnative.so``), built with ``make -C native`` on
-first use.  The port takes two functions from it, the bulk M4 formatter
-and the local Smith-Waterman of EstimateROC's per-pair adjudication
-(native/sw.cc); ``library()`` hands the loaded library to callers that declare other
+first use.  The port takes three functions from it: the bulk M4
+formatter, the local Smith-Waterman of EstimateROC's per-pair adjudication
+(native/sw.cc), and canonical MurmurHash3 x86_32 over a byte string
+(native/murmur3.c; CountMin's object hashing); ``library()`` hands the loaded library to callers that declare other
 entries themselves (chip_smoke.py's native scorer check).
 """
 
@@ -34,6 +35,9 @@ def library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     lib.mhap_sw_align.restype = ctypes.c_int
+    lib.murmur3_x86_32.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                   ctypes.c_uint32]
+    lib.murmur3_x86_32.restype = ctypes.c_uint32
     return lib
 
 
@@ -80,3 +84,11 @@ def sw_align(query: bytes, ref: bytes, match: int = 2, mismatch: int = -2,
         "r_end": re_, "matches": matches, "errors": errors,
         "length": length, "identity": identity,
     }
+
+
+def murmur3_x86_32(data: bytes, seed: int = 0) -> int:
+    """MurmurHash3 x86_32 of ``data`` as an unsigned int."""
+    buf = (np.frombuffer(data, dtype=np.uint8) if data
+           else np.zeros(1, dtype=np.uint8))
+    return int(library().murmur3_x86_32(buf.ctypes.data, len(data),
+                                        seed & 0xFFFFFFFF))

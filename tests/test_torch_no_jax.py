@@ -1,8 +1,9 @@
 """The port stands without JAX and without the JAX package: imports, a
 small CPU run (unfiltered, filtered, a --supress-noise 2 sketch with
-the bloom filter through a .dat file, a one-rank sharded run, and an
+the bloom filter through a .dat file, a one-rank sharded run, an
 EstimateROC estimate whose disputed pair goes through the batched
-Smith-Waterman) with both blocked, an import scan
+Smith-Waterman, the numpy oracle's overlap_self and a CPU
+bit_similarity_matrix) with both blocked, an import scan
 of its sources, the device check, and chip_smoke.py's refusal to run
 without a GPU or the repo."""
 
@@ -88,8 +89,19 @@ with tempfile.TemporaryDirectory() as td:
     roc.estimate_ppv(batch_dp=True)  # pair 1-2 disputed, then rescued
 assert seen and seen[0] > 0 and roc.ppv == 1.0, (seen, roc.ppv)
 assert roc.tp + roc.fn > 0 and roc.tn + roc.fp > 0
+from mhap_tpu_torch.oracle.pipeline import overlap_self
+assert overlap_self(reads, cfg) == lines
+from mhap_tpu_torch.ops.bits_kernels import bit_similarity
+from mhap_tpu_torch.sketches.bits import (MinHashBitSketch,
+                                          bit_similarity_matrix)
+bits = np.stack([MinHashBitSketch(r[:600], 12, 2).bits for r in reads])
+sim = bit_similarity_matrix(bits, bits, device="cpu")
+assert sim.shape == (4, 4) and (sim.diagonal() == 1).all()
+assert float(sim[0, 1]) == MinHashBitSketch(bits[0]).similarity(
+    MinHashBitSketch(bits[1]))
 assert (min_reduce_w1.launches, weighted_min_reduce.launches,
-        score_pairs.launches, sw_align_batch.launches) == (0, 0, 0, 0)
+        score_pairs.launches, sw_align_batch.launches,
+        bit_similarity.launches) == (0, 0, 0, 0, 0)
 assert not any(m.split(".")[0] in ("jax", "mhap_tpu")
                and sys.modules[m] is not None for m in sys.modules)
 print(len(names), len(lines))
@@ -102,7 +114,7 @@ def test_port_imports_and_runs_without_jax():
                        env=dict(os.environ, PYTHONPATH=REPO))
     assert r.returncode == 0, r.stderr[-3000:]
     n_modules, n_lines = map(int, r.stdout.split())
-    assert n_modules >= 15 and n_lines >= 3
+    assert n_modules >= 40 and n_lines >= 3
 
 
 def imported_roots(path: str) -> set:

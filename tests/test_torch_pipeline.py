@@ -175,8 +175,9 @@ def test_no_kernel_launch_on_cpu(reads):
 
 
 def test_unported_paths_raise(reads, tmp_path):
-    """Only --backend oracle stays unported and stops; the filter reader
-    takes --supress-noise 1/2, and the CLI .dat input."""
+    """Every path is ported now: the filter reader takes --supress-noise
+    1/2, and the CLI .dat input; only --backend oracle refuses a .dat,
+    as the JAX CLI's does."""
     for ru in (1, 2):
         fc = FrequencyCounts(["1 1", "ACGTACGTACGTACGT 0.1"], 1e-5, 0.9, ru,
                              False, 3.0, True)
@@ -186,6 +187,6 @@ def test_unported_paths_raise(reads, tmp_path):
     assert cli_main(["-p", str(fa), "-q", str(tmp_path), "--num-hashes",
                      "128"], device="cpu") == 0
     assert (tmp_path / "reads.dat").stat().st_size > 0
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="requires the device backend"):
         cli_main(["-s", str(tmp_path / "reads.dat"), "--backend", "oracle"])
     assert TorchOverlapper(CFG, device="cpu").device == torch.device("cpu")

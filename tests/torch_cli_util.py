@@ -22,7 +22,10 @@ _get_overlapper = jax_cli._get_overlapper
 
 def _shared_overlapper(cfg, backend, kmer_filter, num_threads=None):
     # an overlapper fixes only its scorer's program (max_shift, S) at
-    # construction; the rest of cfg is read at each call
+    # construction; the rest of cfg is read at each call.  The oracle
+    # backend has none.
+    if backend not in ("device", "sharded"):
+        return None
     key = (cfg["ordered_sketch_size"], cfg["max_shift"])
     if key not in _overlappers:
         ov = _get_overlapper(cfg, backend, None, num_threads)
@@ -50,12 +53,13 @@ def port_cli_main(argv):
     return port_cli(argv, device="cpu")
 
 
-def run(cli, argv, capsys):
-    """stdout lines of one CLI run, which must exit 0."""
+def run(cli, argv, capsys, err=False):
+    """stdout lines of one CLI run, which must exit 0 (and its stderr
+    when ``err``)."""
     rc = cli(argv)
     out = capsys.readouterr()
     assert rc == 0, out.err
-    return out.out.splitlines()
+    return (out.out.splitlines(), out.err) if err else out.out.splitlines()
 
 
 def both(argv_of, tmp_path, capsys):
