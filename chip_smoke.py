@@ -96,9 +96,13 @@ at once), then:
      a card when the machine has 2 or more (scripts/sharded_check.py
      runs NCCL ranks at D = 2 and every card);
  12. EstimateROC (mhap_tpu_torch/tools/estimate_roc.py) and kernel 5,
-     the batched Smith-Waterman (csrc/swalign.cu): kernel 5 bit-equal to
-     its plain version on the CPU test's adversarial set; EstimateROC(
-     min_ovl_len=500, num_trials=2000, do_dp=True, device="cuda") as
+     the batched Smith-Waterman (csrc/swalign.cu, a block of 4 warps a
+     pair): its registers, spills and resident warps per SM in both stat
+     layouts;
+     kernel 5 bit-equal to its plain version on the CPU test's adversarial
+     set (lengths around its stripe of 32 x 4 rows, and short tie-heavy
+     pairs); EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True,
+     device="cuda") as
      bench.bench_config_lognormal runs it, with estimate_ppv(batch_dp=
      True), on phase 5's lognormal10k and phase 6's filtered2k (its
      repeat family gives 1,713 disputed pairs, which go through kernel 5;
@@ -108,8 +112,12 @@ at once), then:
      package's goldens (ROC_GOLDENS); lognormal10k's per-pair PPV (the
      native library) beside it, and the tool's CLI as a subprocess, its
      stdout equal to the JAX tool's; kernel 5 timed on filtered2k's
-     disputed pairs and on the first 8 cut to 2,000 bases, bit-equal to
-     its plain version on both, with its bound and GCUPS;
+     disputed pairs, on the first 8 cut to 2,000 bases and on three
+     pairs of a 66.8 kb query (400-base reads across and past its row
+     65,536, and an unrelated one: the kernel's 32-bit stats, the best
+     row past 16 bits; the plain version run once), bit-equal to its
+     plain version on all, with its bound (SW_OPS_PER_CELL over the
+     card's integer issue rate) and GCUPS;
  13. kernel 6, the bit-sketch similarity matrix (csrc/bits.cu), bit-equal
      to its plain version on the CPU test's adversarial set, on the 1-bit
      MinHash sketches of the primary reads (sketch_reads, then the last
@@ -128,7 +136,8 @@ there fails the run, and so does a device-memory path of phase 9 that
 phase 9's CLI runs did not launch.  The bound of each kernel is the
 larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
-integer operations over the card's INT32 rate (kernel 6: its popcounts
+integer operations over the card's INT32 rate (kernel 5: over its
+integer issue rate, ALU and FMA pipes together; kernel 6: its popcounts
 over the card's popcount rate).  The entries of kernels
 2, 3, 5 and 6 also list their time and bound at each shape timed
 (``timings``); the line also lists the device-memory paths of phase 9,
@@ -160,6 +169,10 @@ EXPECTED_LOGNORMAL10K = 158246
 EXPECTED_FILTERED2K = 286410
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64    # Hopper SM (NVIDIA H100 white paper)
+# integer instructions an SM can start a clock: four schedulers issue one
+# warp instruction each, to the ALU pipe or to the FMA pipe (where IMAD
+# runs), and a fused DPX instruction takes one slot (kernel 5's rate)
+INT_ISSUE_PER_SM_CLOCK = 128
 # population-count results a clock on an SM of compute capability 9.0
 # (CUDA C++ Programming Guide, arithmetic instruction throughput)
 POPC_PER_SM_CLOCK = 16
@@ -199,13 +212,18 @@ CANU_MODE1_SHA256 = \
 CANU512_LINES = 87037
 CANU512_SHA256 = \
     "b157c8b5c3da91e7038e57e61fb8e188302cce2d1e976662ba743c30374a2474"
-# INT32 operations a cell of csrc/swalign.cu: E and F each two subtracts,
-# a compare, a select, four stat selects and an add (18); the diagonal's
-# byte compare, score select, add, two stat adds, H == 0 compare, i-1,
-# j-1 and two selects (10); three max (3); h > 0 and three equality
-# compares with four stats selected three ways (16); the running best's
-# compare and seven selects (8)
-SW_OPS_PER_CELL = 55
+# INT32 operations a cell that kernel 5's function needs at least (loop,
+# stripe and team bookkeeping left out), the path stats in two words
+# (L << 16 | M, Q << 16 | R) and a fused DPX max one operation: H -
+# gap_open once for the E and F it feeds (1); E and F each a subtract and
+# a max with its extend flag (4), their stats two selects and an add (6);
+# the diagonal's byte compare, score select and add (3), its H == 0
+# compare, stats' two selects and add, begin select and the cell's
+# position (6); H = max(diag, E, F, 0) (1) and its stats' two compares
+# and four selects (6); the running best's max with its flag and three
+# selects (4).  Over INT_ISSUE_PER_SM_CLOCK, not the INT32 lanes' 64: the
+# kernel's IMADs run on the FMA pipe beside them
+SW_OPS_PER_CELL = 31
 # phase 12, EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True) on
 # each input's truth (bench.write_truth_m4) and line set, sorted as
 # overlap_self returns it: goldens of the JAX package on the CPU
@@ -244,23 +262,15 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def int32_ops_per_s() -> float:
-    """SMs x 64 INT32 lanes x the card's maximum SM clock."""
+def sm_rate(per_sm_clock: int) -> float:
+    """SMs x ``per_sm_clock`` operations x the card's maximum SM clock, a
+    second: INT32_LANES_PER_SM, INT_ISSUE_PER_SM_CLOCK or
+    POPC_PER_SM_CLOCK."""
     import torch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    return sms * INT32_LANES_PER_SM * mhz * 1e6
-
-
-def popc_per_s() -> float:
-    """SMs x 16 population counts a clock x the card's maximum SM
-    clock."""
-    import torch
-
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    return sms * POPC_PER_SM_CLOCK * mhz * 1e6
+    return sms * per_sm_clock * mhz * 1e6
 
 
 def bound(nbytes: float, nops: float, rate: float) -> dict:
@@ -663,6 +673,48 @@ def roc_files(bench, tmpdir: str, reads, placements, genome_len, lines):
     return truth, ovls, fa
 
 
+def estimate_roc_recorded(files):
+    """EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True) on the
+    card as bench_config_lognormal runs it, with estimate_ppv(batch_dp=
+    True) on roc_files' (truth, overlaps, fasta).  Returns (roc, the
+    disputed pairs its batched Smith-Waterman took, PPV seconds, seconds
+    to load and estimate sensitivity and specificity)."""
+    import torch
+
+    from mhap_tpu_torch.tools.estimate_roc import EstimateROC
+
+    t0 = time.perf_counter()
+    roc = EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True,
+                      device="cuda")
+    roc.process_reference(files[0])
+    roc.load_fasta(files[2])
+    roc.process_overlaps(files[1])
+    roc.estimate_sensitivity()
+    roc.estimate_specificity()
+    t1 = time.perf_counter()
+    disputed = []
+    batch = roc._compute_dp_batch
+
+    def record(pairs):
+        disputed.extend(pairs)
+        return batch(pairs)
+
+    roc._compute_dp_batch = record
+    roc.estimate_ppv(batch_dp=True)
+    torch.cuda.synchronize()
+    return roc, disputed, time.perf_counter() - t1, t1 - t0
+
+
+def filtered2k_disputed(bench, tmpdir: str, lines):
+    """Kernel 5's inputs on the main path: filtered2k's disputed PPV pairs
+    ([1,713, 2,889] and [1,713, 2,849]), made as phase 12 makes them from
+    the overlapper's sorted ``lines`` on filtered2k_placed's reads."""
+    reads, places, glen, _ = filtered2k_placed(bench)
+    files = roc_files(bench, tmpdir, reads, places, glen, lines)
+    roc, disputed = estimate_roc_recorded(files)[:2]
+    return roc.dp_batch_inputs(disputed)[0]
+
+
 # the eight outputs of sw_align_batch, in the order sw_sha256 hashes them
 SW_COLS = ("score", "q_end", "r_end", "q_begin", "r_begin", "matches",
            "errors", "length")
@@ -742,6 +794,38 @@ def sw_adversarial_pairs(seed: int = 7, B: int = 128):
         (mutate_dna(rng, g[:180]), g[20:90]),
         (g[50:110], mutate_dna(rng, g[:200])),
     ]
+
+
+def sw_tie_pairs(seed: int = 17, count: int = 16):
+    """Short pairs (3-30 bases) over AC and ACGT, each also with its
+    roles swapped: many equal scores, so E's and F's extend-on-ties, H's
+    diag-F-E order and the best cell's (i, j) order decide the outputs."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for c in range(count):
+        alpha = np.frombuffer(b"AC" if c % 2 else b"ACGT", np.uint8)
+        la, lb = rng.integers(3, 31, 2)
+        a = bytes(alpha[rng.integers(0, len(alpha), la)])
+        b = bytes(alpha[rng.integers(0, len(alpha), lb)])
+        out += [(a, b), (b, a)]
+    return out
+
+
+def sw_long_pairs(seed: int = 4247):
+    """Three pairs whose query is longer than 65,535 bases, so kernel 5
+    takes its 32-bit stats and the best cell's row and the path's begin
+    pass 16 bits: a noisy 66.8 kb stretch of a random genome against noisy
+    400-base reads from inside it, one across row 65,536 and one past it,
+    and against an unrelated 400 bases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = dna(rng, 66_800)
+    q = mutate_dna(rng, g)
+    return [(q, mutate_dna(rng, g[65_300:65_700])),
+            (q, mutate_dna(rng, g[66_100:66_500])), (q, dna(rng, 400))]
 
 
 def bits_adversarial(seed: int = 13):
@@ -1200,13 +1284,14 @@ def sharded_phase(bench, kern, add, launches, native_sha, run5, reads10k,
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
 
-def roc_phase(bench, kern, add, results, rate, roc_inputs,
-              tmpdir: str) -> None:
-    """Phase 12: kernel 5 against its plain version on the adversarial
-    set; EstimateROC as bench_config_lognormal runs it on lognormal10k and
-    on filtered2k, against the JAX package's goldens, the batched
-    Smith-Waterman on the card; kernel 5 timed on filtered2k's disputed
-    pairs; the tool's CLI as a subprocess."""
+def roc_phase(bench, kern, add, results, roc_inputs, tmpdir: str) -> None:
+    """Phase 12: kernel 5's registers, spills and resident warps in both
+    stat layouts; kernel 5 against its plain version on the adversarial
+    set and the tie pairs; EstimateROC as bench_config_lognormal runs it
+    on lognormal10k and on filtered2k, against the JAX package's goldens,
+    the batched Smith-Waterman on the card; kernel 5 timed on filtered2k's
+    disputed pairs, on the first 8 cut to 2,000 bases and on sw_long_pairs
+    (the 32-bit stats); the tool's CLI as a subprocess."""
     import torch
 
     from mhap_tpu_torch.ops import swalign_kernels as swk
@@ -1217,20 +1302,24 @@ def roc_phase(bench, kern, add, results, rate, roc_inputs,
     t12 = time.perf_counter()
     dev = torch.device("cuda")
     sw = swk.sw_align_batch
+    rate = sm_rate(INT_ISSUE_PER_SM_CLOCK)
+    log(f"[12] integer issue rate {rate / 1e12:.3f} T op/s")
 
     def cols(out):
         return [out[k] for k in SW_COLS]
 
     def check(name, args, reps=5):
-        """Kernel vs plain on args, bit for bit; both timed."""
+        """Kernel vs plain on args, bit for bit; both timed (the plain
+        version one run, the one compared)."""
         got = sw(*args)
-        want = sw_plain(*args)
+        want = []
+        plain_ms = once_ms(lambda: want.append(sw_plain(*args)))
         ql, rl = args[1].long(), args[3].long()
         cells = int((ql * rl).sum())
         t = dict(name=name, pairs=len(ql), cells=cells,
-                 err=max_err(cols(got), cols(want)),
+                 err=max_err(cols(got), cols(want[0])),
                  ms=time_ms(lambda: sw(*args), reps=reps),
-                 plain_ms=once_ms(lambda: sw_plain(*args)),
+                 plain_ms=plain_ms,
                  **bound(args[0].numel() + args[2].numel() + 40 * len(ql),
                          cells * SW_OPS_PER_CELL, rate))
         t["gcups"] = cells / t["ms"] / 1e6
@@ -1240,9 +1329,15 @@ def roc_phase(bench, kern, add, results, rate, roc_inputs,
     def to_card(pairs):
         return [torch.from_numpy(x).to(dev) for x in pack_pairs(pairs)]
 
-    # (a) the CPU test's adversarial set
+    # what the card gives each instantiation of the kernel
+    for wide in (False, True):
+        occ = swk.occupancy(wide)
+        log(f"[12] kernel 5, {('two-word', '32-bit')[wide]} stats: {occ}")
+    # (a) the CPU test's adversarial set (lengths around the warp's
+    # stripe of swk.STRIPE rows) and its tie-heavy short pairs
     timings = [check("the adversarial set",
-                     to_card(sw_adversarial_pairs(B=swk.THREADS)))]
+                     to_card(sw_adversarial_pairs(B=swk.STRIPE)
+                             + sw_tie_pairs()))]
     # (b) EstimateROC as bench_config_lognormal runs it, on the card; the
     # kernel's outputs on the disputed pairs are made again after the
     # launch counter is read
@@ -1252,27 +1347,9 @@ def roc_phase(bench, kern, add, results, rate, roc_inputs,
         d = os.path.join(tmpdir, f"roc_{name}")
         os.makedirs(d, exist_ok=True)
         files = roc_files(bench, d, reads, places, glen, lines)
-        t0 = time.perf_counter()
-        roc = EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True,
-                          device="cuda")
-        roc.process_reference(files[0])
-        roc.load_fasta(files[2])
-        roc.process_overlaps(files[1])
-        roc.estimate_sensitivity()
-        roc.estimate_specificity()
-        t1 = time.perf_counter()
-        disputed = []
-        batch = roc._compute_dp_batch
-
-        def record(pairs, batch=batch, disputed=disputed):
-            disputed.extend(pairs)
-            return batch(pairs)
-
-        roc._compute_dp_batch = record
-        roc.estimate_ppv(batch_dp=True)
-        torch.cuda.synchronize()
-        runs[name] = (roc, disputed, time.perf_counter() - t1, t1 - t0)
+        runs[name] = estimate_roc_recorded(files)
         if name == "lognormal10k":
+            ppv = runs[name][0].ppv
             # the per-pair path (native library) on the same stream
             per = EstimateROC(min_ovl_len=500, num_trials=2000, do_dp=True,
                               device="cuda")
@@ -1283,7 +1360,7 @@ def roc_phase(bench, kern, add, results, rate, roc_inputs,
             per.estimate_specificity()
             per.estimate_ppv(batch_dp=False)
             log(f"[12] (b) lognormal10k, batch_dp=False (per pair, native):"
-                f" PPV {per.ppv} (batched {roc.ppv})")
+                f" PPV {per.ppv} (batched {ppv})")
             # (c) the tool's entry point, per-pair DP as in JAX
             t0 = time.perf_counter()
             r = subprocess.run(
@@ -1331,6 +1408,22 @@ def roc_phase(bench, kern, add, results, rate, roc_inputs,
            args[2][:8, :2000].contiguous(), args[3][:8].clamp(max=2000)]
     timings += [main_t, check("filtered2k's first 8 disputed pairs, cut to "
                               "2,000 bases", cut)]
+    # (d) pairs past the two-word stats (a query past 65,535 bases): the
+    # 32-bit instantiation, the plain version run once
+    long_args = to_card(sw_long_pairs())
+    n, m = long_args[0].shape[1], long_args[2].shape[1]
+    if swk.packed_stats(n, m, 2, 1):
+        raise AssertionError(f"the long pairs ({n} + {m}) take the "
+                             f"two-word stats")
+    timings.append(check(f"three pairs past the two-word stats ([P, n] x "
+                         f"[P, m] = {n:,} x {m:,}; 32-bit stats)", long_args,
+                         reps=1))
+    got = sw(*long_args)
+    log(f"[12] (d) the long pairs' q_begin {got['q_begin'].tolist()}, "
+        f"q_end {got['q_end'].tolist()}")
+    if int(got["q_end"][:2].min()) < 65_536:
+        raise AssertionError("the long pairs' best rows stay inside 16 "
+                             "bits")
     err = max(t["err"] for t in timings)
     results["sw_align_batch"] = dict(
         err=err, ms=main_t["ms"], plain_ms=main_t["plain_ms"],
@@ -1370,7 +1463,7 @@ def kernel6_checks(kern, add, results, reads) -> None:
                                               pack_last_bits_msb_first)
 
     dev = torch.device("cuda")
-    rate = popc_per_s()
+    rate = sm_rate(POPC_PER_SM_CLOCK)
     log(f"[13] popcount rate {rate / 1e12:.3f} T/s")
 
     def same(got, want):
@@ -1536,7 +1629,7 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     # ---- phase 1: card, versions, build ----
     smi = nvidia_smi()
-    rate = int32_ops_per_s()
+    rate = sm_rate(INT32_LANES_PER_SM)
     log(f"[1] card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; INT32 "
         f"rate {rate / 1e12:.3f} T op/s")
@@ -2285,7 +2378,7 @@ def main() -> int:
                   reads_f, fc, tmp.name)
 
     # ---- phase 12: EstimateROC and kernel 5 ----
-    roc_phase(bench, kern, add, results, rate, roc_inputs, tmp.name)
+    roc_phase(bench, kern, add, results, roc_inputs, tmp.name)
     del roc_inputs
 
     # ---- phase 13: kernel 6 and --backend oracle ----

@@ -52,8 +52,9 @@ SIGNATURES = {
     "mhap_score_pairs_occupancy": [_I, _P],
     "mhap_merge2": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "mhap_merge2_occupancy": [_I, _I, _P],
-    "mhap_sw_align_batch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _P, _P, _P],
+    "mhap_sw_align_batch": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P, _P],
+    "mhap_sw_align_occupancy": [_I, _P],
     "mhap_bit_similarity": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
@@ -81,8 +82,18 @@ def _sources() -> list[str]:
     return srcs
 
 
+def _flags() -> list[str]:
+    """NVCC_FLAGS and the shapes the sources take from their wrappers, so
+    each is kept in one place: kernel 5's block (ops/swalign_kernels.py
+    WARPS and ROWS)."""
+    from . import swalign_kernels as swk
+
+    return [*NVCC_FLAGS, f"-DMHAP_SW_WARPS={swk.WARPS}",
+            f"-DMHAP_SW_ROWS={swk.ROWS}"]
+
+
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for p in _sources():
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode() + b"\0" + f.read())
@@ -96,7 +107,7 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc, flags = _nvcc(), _flags()
     tmp = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
     try:
@@ -104,7 +115,7 @@ def build() -> str:
         for src in (p for p in _sources() if p.endswith(".cu")):
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             jobs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                [nvcc, *flags, "-c", src, "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         errors = []
         for src, _obj, proc in jobs:

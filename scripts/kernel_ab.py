@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times kernels 1-4 of one tree's ``mhap_tpu_torch`` at the main path's
+"""Times kernels 1-5 of one tree's ``mhap_tpu_torch`` at the main path's
 shapes on the GPU, so that two trees can be compared in one call:
 
     python3 scripts/kernel_ab.py PARENT_TREE    # then CHANGE, CHANGE, PARENT
+    python3 scripts/kernel_ab.py TREE --kernels 5   # only kernel 5
 
 Imports ``mhap_tpu_torch`` from the tree given (its kernels build into
 that tree's ``mhap_tpu_torch/build``) and the inputs' recipes (``bench``)
@@ -16,12 +17,16 @@ lognormal10k's first 32,768, [T, 1,536] -> [T, 3,072], timed three
 ways: through the wrapper, as a call of its C entry on preallocated
 outputs (the wrapper's checks and allocations left out), and as 20
 wrapper calls back to back over 20 (the host's time a call hidden behind
-the card's queue).  CUDA events, median of 5 after a warm-up.  Prints
+the card's queue); kernel 5 on filtered2k's 1,713 disputed PPV pairs
+([1,713, 2,889] and [1,713, 2,849]), made as chip_smoke.py phase 12 makes
+them (the tree's overlapper and EstimateROC), its eight outputs' sha256
+beside the JAX golden.  CUDA events, median of 5 after a warm-up.  Prints
 one JSON line with the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -54,13 +59,20 @@ def queued_ms(fn, n: int = 20, reps: int = 5) -> float:
 
 
 def main() -> int:
-    tree = os.path.abspath(sys.argv[1])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("tree")
+    ap.add_argument("--kernels", default="1,2,3,4,5",
+                    help="comma-separated kernel numbers to time")
+    a = ap.parse_args()
+    tree = os.path.abspath(a.tree)
+    which = {int(k) for k in a.kernels.split(",")}
     sys.path.insert(0, REPO)
     import numpy as np
     import torch
 
     import bench
-    from chip_smoke import candidate_pairs, merge_rows
+    from chip_smoke import (ROC_GOLDENS, candidate_pairs,
+                            filtered2k_disputed, merge_rows, sw_sha256)
 
     sys.path.insert(0, tree)
     import mhap_tpu_torch
@@ -72,6 +84,7 @@ def main() -> int:
     from mhap_tpu_torch.ops.minhash_kernels import (min_reduce_w1,
                                                     weighted_min_reduce)
     from mhap_tpu_torch.ops.scorer_kernels import score_pairs
+    from mhap_tpu_torch.ops.swalign_kernels import sw_align_batch
     from mhap_tpu_torch.pipeline.freqfilter import VectorFrequencyFilter
     from mhap_tpu_torch.pipeline.overlapper import (TorchOverlapper,
                                                     _rc_codes)
@@ -101,47 +114,55 @@ def main() -> int:
 
     out = {"tree": tree}
     reads = bench.make_reads()
-    h, _ = rows_of(reads[:512])
-    act = torch.ones_like(h, dtype=torch.bool)
-    out["k1 [512, 2885] H=512"] = time_ms(lambda: min_reduce_w1(h, act, H))
-    rows = []
-    for i, r in enumerate(reads[512:576]):
-        rows.append(r[:600] + r[600:700] * (1 + i % 4) + r[700:2000])
-    rows.append(reads[600][:300] + "ACGTTGCA" * 200 + reads[600][300:600])
-    args = weighted(*rows_of(rows))
-    out["k2 phase 2 rows [65, 2289]"] = time_ms(
-        lambda: weighted_min_reduce(*args, H))
-    genome_len = int(2048 * bench.READ_LEN / 25.0)
-    genome = bench.repeat_seeded_genome(genome_len, seed=bench.SEED + 2)
-    reads_f, _, _ = bench.make_reads_placed(2048, seed=bench.SEED + 2,
-                                            lognormal=False, genome=genome,
-                                            genome_len=genome_len)
-    with tempfile.TemporaryDirectory() as td:
-        path = os.path.join(td, "kmers.txt")
-        bench.write_filter_file(genome, 16, path)
-        with open(path) as f:
-            fc = FrequencyCounts(f, 1e-5, 0.9, 0, False, 3.0, True)
-    vf = VectorFrequencyFilter(fc, dev)
-    strands = []
-    for r in reads_f[:512]:
-        c = np.frombuffer(r.encode(), np.uint8)
-        strands += [c, _rc_codes(c)]
-    args = weighted(*rows_of(strands),
-                    lambda k, c: vf.weights(k, c, 0.9))
-    out["k2 filtered2k chunk [1024, 2929]"] = time_ms(
-        lambda: weighted_min_reduce(*args, H))
-    store, qg, cand = candidate_pairs(
-        TorchOverlapper(device="cuda", kmer_filter=vf), reads_f)
-    qi = torch.from_numpy(qg.astype(np.int32)).to(dev)
-    ci = torch.from_numpy(cand.astype(np.int32)).to(dev)
-    cols = store.scorer_cols()
-    out[f"k3 filtered2k {len(qg)} pairs S=1536"] = time_ms(
-        lambda: score_pairs(cols, cols, qi, ci, 0.2))
-    del store, cols
-    for name, rs, n in (
-            ("primary", reads, 4096),
-            ("lognormal10k", bench.make_reads_placed(
-                10_000, seed=bench.SEED + 1)[0], 32768)):
+    if 1 in which:
+        h, _ = rows_of(reads[:512])
+        act = torch.ones_like(h, dtype=torch.bool)
+        out["k1 [512, 2885] H=512"] = time_ms(
+            lambda: min_reduce_w1(h, act, H))
+    if 2 in which:
+        rows = []
+        for i, r in enumerate(reads[512:576]):
+            rows.append(r[:600] + r[600:700] * (1 + i % 4) + r[700:2000])
+        rows.append(reads[600][:300] + "ACGTTGCA" * 200
+                    + reads[600][300:600])
+        args = weighted(*rows_of(rows))
+        out["k2 phase 2 rows [65, 2289]"] = time_ms(
+            lambda: weighted_min_reduce(*args, H))
+    if which & {2, 3, 5}:
+        genome_len = int(2048 * bench.READ_LEN / 25.0)
+        genome = bench.repeat_seeded_genome(genome_len, seed=bench.SEED + 2)
+        reads_f, _, _ = bench.make_reads_placed(
+            2048, seed=bench.SEED + 2, lognormal=False, genome=genome,
+            genome_len=genome_len)
+        with tempfile.TemporaryDirectory() as td:
+            path = os.path.join(td, "kmers.txt")
+            bench.write_filter_file(genome, 16, path)
+            with open(path) as f:
+                fc = FrequencyCounts(f, 1e-5, 0.9, 0, False, 3.0, True)
+        vf = VectorFrequencyFilter(fc, dev)
+    if 2 in which:
+        strands = []
+        for r in reads_f[:512]:
+            c = np.frombuffer(r.encode(), np.uint8)
+            strands += [c, _rc_codes(c)]
+        args = weighted(*rows_of(strands),
+                        lambda k, c: vf.weights(k, c, 0.9))
+        out["k2 filtered2k chunk [1024, 2929]"] = time_ms(
+            lambda: weighted_min_reduce(*args, H))
+    if 3 in which:
+        store, qg, cand = candidate_pairs(
+            TorchOverlapper(device="cuda", kmer_filter=vf), reads_f)
+        qi = torch.from_numpy(qg.astype(np.int32)).to(dev)
+        ci = torch.from_numpy(cand.astype(np.int32)).to(dev)
+        cols = store.scorer_cols()
+        out[f"k3 filtered2k {len(qg)} pairs S=1536"] = time_ms(
+            lambda: score_pairs(cols, cols, qi, ci, 0.2))
+        del store, cols
+    k4_rows = (("primary", reads, 4096),
+               ("lognormal10k", bench.make_reads_placed(
+                   10_000, seed=bench.SEED + 1)[0], 32768)) \
+        if 4 in which else ()
+    for name, rs, n in k4_rows:
         store, qg, cand = candidate_pairs(TorchOverlapper(device="cuda"),
                                           rs)
         qi = torch.from_numpy(qg[:n].astype(np.int32)).to(dev)
@@ -160,6 +181,17 @@ def main() -> int:
         if not all(map(torch.equal, o, merge2(*ma, out_width=3072))):
             raise AssertionError(f"{key}: C entry differs from the wrapper")
         del store, ma, o
+    if 5 in which:
+        lines = TorchOverlapper(device="cuda", kmer_filter=vf).overlap_self(
+            reads_f)
+        with tempfile.TemporaryDirectory() as td:
+            args = filtered2k_disputed(bench, td, lines)
+        key = (f"k5 filtered2k {len(args[1])} disputed pairs "
+               f"{list(args[0].shape)} x {list(args[2].shape)}")
+        out[key] = time_ms(lambda: sw_align_batch(*args))
+        out[key + " sha256 equal to the JAX golden"] = (
+            sw_sha256(sw_align_batch(*args))
+            == ROC_GOLDENS["filtered2k"]["sw_sha256"])
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
