@@ -125,7 +125,13 @@ at once), then:
      and its [2,048, 16] uint32 view, all against all, through
      sketches/bits.bit_similarity_matrix) and on [8,192, 8] x [8,192, 8]
      uint64 words of BITS_SEED, each uint64 count equal to a numpy
-     popcount, timed with its bound over the card's popcount rate; then
+     popcount, timed with its bound (its AND-popcount product as int8
+     tensor-core MACs, against its output's bytes; the popcount bound of
+     the kernel before beside it), its occupancy, and an fp16 matmul of
+     the unpacked 0/1 rows as the product's yardstick; also ragged sets
+     ([2,047, 8] x [129, 8] uint64, W = 17 uint32), rows past the
+     kernel's output table (8,192 bits or more, which divide) and a set
+     past the parent design's grid limit, [4,200,000, 8] x [3, 8]; then
      ``--backend oracle`` through the CLI as a subprocess on the first
      ORACLE_READS primary reads, its line set's sha256 equal to the
      device CLI's and the native binary's on the same file.
@@ -137,9 +143,9 @@ phase 9's CLI runs did not launch.  The bound of each kernel is the
 larger of its bytes
 (each input read once, each output written once) over 3.35 TB/s and its
 integer operations over the card's INT32 rate (kernel 5: over its
-integer issue rate, ALU and FMA pipes together; kernel 6: its popcounts
-over the card's popcount rate).  The entries of kernels
-2, 3, 5 and 6 also list their time and bound at each shape timed
+integer issue rate, ALU and FMA pipes together; kernel 6: 2 K operations
+an output over the card's dense int8 tensor-core rate).  The entries of
+kernels 2, 3, 5 and 6 also list their time and bound at each shape timed
 (``timings``); the line also lists the device-memory paths of phase 9,
 at their first shape past the shared-memory limit.  The last
 stdout lines are the kernels' JSON line, the card's nvidia-smi line and
@@ -174,8 +180,24 @@ INT32_LANES_PER_SM = 64    # Hopper SM (NVIDIA H100 white paper)
 # runs), and a fused DPX instruction takes one slot (kernel 5's rate)
 INT_ISSUE_PER_SM_CLOCK = 128
 # population-count results a clock on an SM of compute capability 9.0
-# (CUDA C++ Programming Guide, arithmetic instruction throughput)
+# (CUDA C++ Programming Guide, arithmetic instruction throughput): kernel
+# 6's bound before its tensor-core design, kept beside the new one
 POPC_PER_SM_CLOCK = 16
+# dense int8 tensor-core operations (a MAC as two) a clock on an SM: the
+# H100 SXM data sheet's 1,979 T op/s over 132 SMs at the 1,830 MHz clock
+# its tensor rates are quoted at.  sm_rate multiplies it by the card's
+# maximum SM clock as nvidia-smi reports it (1,980 MHz on this part), as it
+# does the other per-clock rates, so the rate it gives is above the data
+# sheet's and the bound errs low
+TC_INT8_OPS_PER_SM_CLOCK = 8192
+# bit operations (an AND-popcount MAC as two) a clock on an SM through
+# mma.sync m16n8k256 b1 .and.popc, the instruction of kernel 6: by the PTX
+# ISA's shapes it covers 8x the k of the s8 m16n8k32 MMA, and
+# scripts/mma_routes.cu measured both issuing ~0.59 MMAs a clock an SM on
+# an H100 (b1 5,035-5,111 T bit-MAC/s, s8 623-642 T MAC/s), so the b1 rate
+# is 8x the int8 one.  Kernel 6's bound counts its product, NA x NB x K bit
+# MACs, at this rate
+TC_B1_OPS_PER_SM_CLOCK = 8 * TC_INT8_OPS_PER_SM_CLOCK
 # phase 13: the oracle CLI's reads (the first of the primary workload),
 # and the seed of kernel 6's [8,192, 8] words
 ORACLE_READS = 256
@@ -264,8 +286,8 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
 
 def sm_rate(per_sm_clock: int) -> float:
     """SMs x ``per_sm_clock`` operations x the card's maximum SM clock, a
-    second: INT32_LANES_PER_SM, INT_ISSUE_PER_SM_CLOCK or
-    POPC_PER_SM_CLOCK."""
+    second: INT32_LANES_PER_SM, INT_ISSUE_PER_SM_CLOCK, POPC_PER_SM_CLOCK
+    or TC_B1_OPS_PER_SM_CLOCK."""
     import torch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -295,6 +317,27 @@ def time_ms(fn, reps: int = 5) -> float:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the card's time for n fn() calls back to
+    back, over n: a sleep kernel queued first covers the host's time of
+    the calls, so the events hold only the launches' device time."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
 
 
@@ -1447,24 +1490,43 @@ def np_xor_popcount(a, b, rows: int = 256):
     return out
 
 
+def unpacked_bits(x, dev):
+    """[N, W] uint32 or uint64 words -> float16 [N, bits W] of their bits,
+    0 or 1, on ``dev`` (the yardstick's operands)."""
+    import numpy as np
+    import torch
+
+    by = torch.from_numpy(np.ascontiguousarray(x).view(np.uint8)).to(dev)
+    shifts = torch.arange(8, device=dev, dtype=torch.uint8)
+    return ((by[..., None] >> shifts) & 1).reshape(len(x), -1).half()
+
+
 def kernel6_checks(kern, add, results, reads) -> None:
     """Phase 13 (a): kernel 6 against its plain version on the
     adversarial set, on the 1-bit MinHash sketches of the primary reads'
     main-path sketches (all against all, uint64 words and their uint32
-    view) and on [8,192, 8] uint64 words of BITS_SEED, the uint64 counts
-    against a numpy popcount, each timed with its bound."""
+    view) and on [8,192, 8] uint64 words of BITS_SEED, each timed with its
+    bound, through the wrapper and as the card's time alone (device_ms),
+    with an fp16 matmul of the unpacked bits as the product's yardstick;
+    then ragged sets, rows past the kernel's output table and a set past
+    the parent design's grid limit; the uint64 counts against a numpy
+    popcount."""
     import numpy as np
     import torch
 
     from mhap_tpu_torch.ops.bits import bit_similarity_ref, words
-    from mhap_tpu_torch.ops.bits_kernels import bit_similarity
+    from mhap_tpu_torch.ops.bits_kernels import bit_similarity, occupancy
     from mhap_tpu_torch.pipeline.overlapper import TorchOverlapper
     from mhap_tpu_torch.sketches.bits import (bit_similarity_matrix,
                                               pack_last_bits_msb_first)
 
     dev = torch.device("cuda")
-    rate = sm_rate(POPC_PER_SM_CLOCK)
-    log(f"[13] popcount rate {rate / 1e12:.3f} T/s")
+    rate = sm_rate(TC_B1_OPS_PER_SM_CLOCK)
+    popc_rate = sm_rate(POPC_PER_SM_CLOCK)
+    occ = {f"vec={v}, table={tb}": occupancy(v, tb)
+           for v in (True, False) for tb in (True, False)}
+    log(f"[13] b1 tensor-core rate {rate / 1e12:.3f} T bit-op/s, "
+        f"popcount rate {popc_rate / 1e12:.3f} T/s; kernel 6 occupancy {occ}")
 
     def same(got, want):
         return bool(torch.equal(got.view(torch.int32),
@@ -1489,19 +1551,34 @@ def kernel6_checks(kern, add, results, reads) -> None:
     log(f"[13] (a) kernel 6 on the adversarial set ({len(cases)} pairs): "
         f"{bad or 'bit-equal to plain, uint64 counts equal to numpy'}")
 
-    def check(name, a, b, reps=5):
+    def check(name, a, b, reps=5, yardstick=False):
         ka, kb = words(a, dev), words(b, dev)
         got = bit_similarity(ka, kb)
         bits = 8 * a.dtype.itemsize
         na, nb, w = len(a), len(b), a.shape[1]
+        nbytes = 4 * na * nb + (na + nb) * w * bits // 8
         t = dict(name=name, shape=[na, nb, w], word_bits=bits,
                  equal=same(got, bit_similarity_ref(ka, kb)),
                  counts_equal=counts_ok(a, b, got),
                  ms=time_ms(lambda: bit_similarity(ka, kb), reps=reps),
+                 device_ms=device_ms(lambda: bit_similarity(ka, kb),
+                                     reps=reps),
                  plain_ms=once_ms(lambda: bit_similarity_ref(ka, kb)),
-                 **bound(4 * na * nb + (na + nb) * w * bits // 8,
-                         na * nb * w * bits // 32, rate))
-        t["ratio"] = t["ms"] / t["bound_ms"]
+                 **bound(nbytes, 2 * na * nb * w * bits, rate))
+        del got
+        popc = bound(nbytes, na * nb * w * bits // 32, popc_rate)
+        t.update(ratio=t["ms"] / t["bound_ms"],
+                 device_ratio=t["device_ms"] / t["bound_ms"],
+                 popc_bound_ms=popc["bound_ms"],
+                 popc_ratio=t["ms"] / popc["bound_ms"])
+        if yardstick:
+            # the product alone: fp16 [NA, K] x [K, NB] of 0/1 values
+            # (exact for K <= 2,048), unpacking left out; not used
+            ua, ub = unpacked_bits(a, dev), unpacked_bits(b, dev)
+            t["library_ms"] = time_ms(lambda: torch.matmul(ua, ub.T),
+                                      reps=reps)
+            t["library"] = "fp16 torch.matmul of the unpacked bits"
+            del ua, ub
         t["err"] = 0 if t["equal"] and t["counts_equal"] else 1
         log(f"[13] (a) kernel 6 on {name}: {t}")
         return t
@@ -1522,26 +1599,46 @@ def kernel6_checks(kern, add, results, reads) -> None:
     n = len(mh)
     off = float(sim64.sum() - sim64.diagonal().sum()) / (n * n - n)
     same64 = bool(torch.equal(sim64, sim32))
+    del sim64, sim32
     log(f"[13] (a) main path: sketch_reads of {len(reads)} primary reads, "
         f"{list(mh.shape)} MinHash -> {list(bits64.shape)} uint64 bit "
         f"sketches, bit_similarity_matrix on uint64 and uint32 words: "
         f"launches {counts}; uint64 and uint32 equal: {same64}; mean "
         f"off-diagonal similarity {off:.4f}")
     timings = [check(f"the primary reads' 1-bit sketches "
-                     f"{list(bits64.shape)} uint64", bits64, bits64),
+                     f"{list(bits64.shape)} uint64", bits64, bits64,
+                     yardstick=True),
                check(f"the same as uint32 {list(bits32.shape)}", bits32,
                      bits32)]
     rng = np.random.default_rng(BITS_SEED)
-    big = rng.integers(0, np.iinfo(np.uint64).max, (2, 8192, 8),
-                       dtype=np.uint64, endpoint=True)
+
+    def rand(n, w, dt):
+        return rng.integers(0, np.iinfo(dt).max, (n, w), dtype=dt,
+                            endpoint=True)
+
+    big = rand(2 * 8192, 8, np.uint64)
     timings.append(check("[8,192, 8] x [8,192, 8] uint64 words of a seed",
-                         big[0], big[1]))
+                         big[:8192], big[8192:], yardstick=True))
+    del big
+    for name, a, b in (
+            ("ragged [2,047, 8] x [129, 8] uint64", rand(2047, 8, np.uint64),
+             rand(129, 8, np.uint64)),
+            ("ragged [2,047, 17] x [129, 17] uint32",
+             rand(2047, 17, np.uint32), rand(129, 17, np.uint32)),
+            ("rows past the output table, [130, 129] x [65, 129] uint64",
+             rand(130, 129, np.uint64), rand(65, 129, np.uint64)),
+            ("rows past the output table, unaligned, [2,048, 257] x "
+             "[130, 257] uint32", rand(2048, 257, np.uint32),
+             rand(130, 257, np.uint32)),
+            ("past the parent design's grid limit, [4,200,000, 8] x [3, 8] "
+             "uint64", rand(4_200_000, 8, np.uint64), rand(3, 8, np.uint64))):
+        timings.append(check(name, a, b, reps=3))
     err = int(bool(bad)) + sum(t["err"] for t in timings) + (not same64)
     main_t = timings[0]
     results["bit_similarity_matrix"] = dict(
         err=err, ms=main_t["ms"], plain_ms=main_t["plain_ms"],
-        library_ms=None, bound_ms=main_t["bound_ms"],
-        bound_by=main_t["bound_by"], timings=timings)
+        library_ms=main_t["library_ms"], bound_ms=main_t["bound_ms"],
+        bound_by=main_t["bound_by"], occupancy=occ, timings=timings)
     if err:
         raise AssertionError(f"kernel 6 differs: {bad}, {timings}")
 
@@ -2419,6 +2516,8 @@ def main() -> int:
          "bound_ms": results[n]["bound_ms"],
          "bound_by": results[n]["bound_by"],
          "library_ms": results[n]["library_ms"],
+         **({"occupancy": results[n]["occupancy"]}
+            if "occupancy" in results[n] else {}),
          "timings": results[n].get("timings", [])} for n in kern]
     # phase 9's paths: the first shape past the shared-memory limit, and
     # the launches of phase 9's CLI runs that took them

@@ -56,6 +56,7 @@ SIGNATURES = {
                             _I, _I, _P, _P, _P, _P],
     "mhap_sw_align_occupancy": [_I, _P],
     "mhap_bit_similarity": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "mhap_bit_similarity_occupancy": [_I, _I, _P],
 }
 
 _lock = threading.Lock()

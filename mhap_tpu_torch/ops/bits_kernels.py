@@ -4,17 +4,18 @@ kernel 6, which replaces mhap_tpu/sketches/bits.py:137
 
 For CPU tensors the wrapper runs the plain version ``ops/bits.
 bit_similarity_ref``; for CUDA tensors it launches the kernel or raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches; ``occupancy`` reports what the card
+gives the kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from .bits import bit_similarity_ref, check_pair
-
-TILE = 64  # output rows and columns a block (csrc/bits.cu kTile)
 
 
 def bit_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -29,9 +30,6 @@ def bit_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("want contiguous words")
     na, nb, w = a.shape[0], b.shape[0], a.shape[1]
-    if (na + TILE - 1) // TILE > 65535:
-        raise ValueError(f"NA = {na} rows exceed the kernel's grid "
-                         f"({65535 * TILE})")
     out = torch.empty((na, nb), dtype=torch.float32, device=dev)
     if na and nb:
         err = _build.kernels().mhap_bit_similarity(
@@ -43,3 +41,20 @@ def bit_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 bit_similarity.launches = 0
+
+
+def occupancy(vec: bool = True, table: bool = True) -> dict:
+    """The registers a thread, static / dynamic shared bytes a block, local
+    (spill) bytes a thread and resident blocks per SM of the kernel, as the
+    CUDA runtime reports them, with its warps a block and a warp's output
+    tile.  ``vec``: the kernel of 16-byte row loads (rows of a multiple of
+    4 words of 32 bits, 16-byte aligned) or of 4-byte ones; ``table``: the
+    kernel for rows of fewer than 8,192 bits (csrc/bits.cu kTableMax),
+    which looks its outputs up by count, or the one that divides."""
+    info = (ctypes.c_int * 8)()
+    _build.check(_build.kernels().mhap_bit_similarity_occupancy(
+        int(vec), int(table), ctypes.addressof(info)),
+        "bit_similarity occupancy")
+    return dict(zip(("registers", "static_smem", "dynamic_smem",
+                     "local_bytes", "blocks_per_sm", "warps", "tile_rows",
+                     "tile_cols"), info))

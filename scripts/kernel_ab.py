@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Times kernels 1-5 of one tree's ``mhap_tpu_torch`` at the main path's
+"""Times kernels 1-6 of one tree's ``mhap_tpu_torch`` at the main path's
 shapes on the GPU, so that two trees can be compared in one call:
 
     python3 scripts/kernel_ab.py PARENT_TREE    # then CHANGE, CHANGE, PARENT
     python3 scripts/kernel_ab.py TREE --kernels 5   # only kernel 5
+    python3 scripts/kernel_ab.py TREE --kernels 6   # only kernel 6
 
 Imports ``mhap_tpu_torch`` from the tree given (its kernels build into
 that tree's ``mhap_tpu_torch/build``) and the inputs' recipes (``bench``)
@@ -20,13 +21,20 @@ wrapper calls back to back over 20 (the host's time a call hidden behind
 the card's queue); kernel 5 on filtered2k's 1,713 disputed PPV pairs
 ([1,713, 2,889] and [1,713, 2,849]), made as chip_smoke.py phase 12 makes
 them (the tree's overlapper and EstimateROC), its eight outputs' sha256
-beside the JAX golden.  CUDA events, median of 5 after a warm-up.  Prints
-one JSON line with the card's nvidia-smi name and power limit.
+beside the JAX golden; kernel 6 on the primary workload's 1-bit MinHash
+sketches (chip_smoke.py phase 13's main path: [2,048, 8] uint64 all
+against all, and their uint32 view) and on [8,192, 8] uint64 words of
+chip_smoke.BITS_SEED, through the wrapper and as the card's time alone
+(chip_smoke.device_ms: 20 calls queued behind a sleep kernel, so the
+host's time a call drops out), each with the sha256 of its output.
+CUDA events, median of 5 after a warm-up.  Prints one JSON line with the
+card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -61,7 +69,7 @@ def queued_ms(fn, n: int = 20, reps: int = 5) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tree")
-    ap.add_argument("--kernels", default="1,2,3,4,5",
+    ap.add_argument("--kernels", default="1,2,3,4,5,6",
                     help="comma-separated kernel numbers to time")
     a = ap.parse_args()
     tree = os.path.abspath(a.tree)
@@ -71,8 +79,9 @@ def main() -> int:
     import torch
 
     import bench
-    from chip_smoke import (ROC_GOLDENS, candidate_pairs,
-                            filtered2k_disputed, merge_rows, sw_sha256)
+    from chip_smoke import (BITS_SEED, ROC_GOLDENS, candidate_pairs,
+                            device_ms, filtered2k_disputed, merge_rows,
+                            sw_sha256)
 
     sys.path.insert(0, tree)
     import mhap_tpu_torch
@@ -192,6 +201,29 @@ def main() -> int:
         out[key + " sha256 equal to the JAX golden"] = (
             sw_sha256(sw_align_batch(*args))
             == ROC_GOLDENS["filtered2k"]["sw_sha256"])
+    if 6 in which:
+        from mhap_tpu_torch.ops.bits import words
+        from mhap_tpu_torch.ops.bits_kernels import bit_similarity
+        from mhap_tpu_torch.sketches.bits import pack_last_bits_msb_first
+
+        store = TorchOverlapper(device="cuda").sketch_reads(reads)
+        bits64 = pack_last_bits_msb_first(
+            store.host("minhash")[store.header_id != 0])
+        big = np.random.default_rng(BITS_SEED).integers(
+            0, np.iinfo(np.uint64).max, (2, 8192, 8), dtype=np.uint64,
+            endpoint=True)
+        bits32 = bits64.view(np.uint32)
+        for name, x, y in (("primary 1-bit sketches", bits64, bits64),
+                           ("their uint32 view", bits32, bits32),
+                           ("seeded words", big[0], big[1])):
+            ka, kb = words(x, dev), words(y, dev)
+            key = f"k6 {name} {list(x.shape)} x {list(y.shape)}"
+            out[key] = time_ms(lambda: bit_similarity(ka, kb))
+            out[key + " device"] = device_ms(lambda: bit_similarity(ka, kb))
+            out[key + " sha256"] = hashlib.sha256(
+                bit_similarity(ka, kb).cpu().numpy().tobytes()
+            ).hexdigest()[:16]
+        del store
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
