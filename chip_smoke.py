@@ -134,9 +134,19 @@ at once), then:
      past the parent design's grid limit, [4,200,000, 8] x [3, 8]; then
      ``--backend oracle`` through the CLI as a subprocess on the first
      ORACLE_READS primary reads, its line set's sha256 equal to the
-     device CLI's and the native binary's on the same file.
+     device CLI's and the native binary's on the same file;
+ 14. scale40k and scale100k (bench.py's 40,000 and 100,000 lognormal
+     reads, 80,000 and 200,000 store rows: past the 65,535 rows where the
+     JAX package leaves its narrow vote for the wide join-vote), each
+     through TorchOverlapper().overlap_self once cold and once split
+     into stages (profile_stages.stage_times), and the CLI's -s in this
+     process on scale40k: 632,392 and 1,587,078 lines, every line set
+     sha256-equal to the native goldens (SCALE_GOLDENS); store rows,
+     candidate pairs, hits, the largest hit chunk, cold and steady wall,
+     peak device memory (the whole run's and the vote's), the process's
+     peak host RSS and the stage split printed.
 Every launch counter is set to 0 right before each main-path run of
-phases 3-13 and read right after (each rank of phase 11's
+phases 3-14 and read right after (each rank of phase 11's
 launches does so itself); a kernel of a path that did not launch
 there fails the run, and so does a device-memory path of phase 9 that
 phase 9's CLI runs did not launch.  The bound of each kernel is the
@@ -257,6 +267,24 @@ SW_OPS_PER_CELL = 31
 # in the truth clusters and the batched Smith-Waterman never runs;
 # filtered2k's repeat family gives 1,713 (padded to [1,713, 2,889] and
 # [1,713, 2,849]: 482 s in JAX on the CPU; its CLI 46 s).
+# phase 14 and scripts/torch_scale_check.py: bench.py's scale inputs,
+# name -> (reads, offset of bench.SEED), built by scale_input
+SCALE_INPUTS = {"scale40k": (40_000, 3), "scale100k": (100_000, 4),
+                "repeat40k": (40_000, 5)}
+# their goldens, name -> (lines, line-set sha256): the native reference
+# (native/mhap_cpu.cc, bench.bench_native; -f kmers.txt for repeat40k) on
+# each input, made on the CPU by scripts/scale_goldens.py (native on 8
+# shared CPU cores: 46 s, 146 s and 465 s; 11.7 min in all).  The counts
+# are those the JAX package matched (SCALE40K_r05.json,
+# SCALE100K_r05.json, REPEAT40K_r05.json)
+SCALE_GOLDENS = {
+    "scale40k": (632392, "b847801217943966eb2dbfe3bef8aa1a"
+                         "9386c6dce195daffc13a044e64a0f3c2"),
+    "scale100k": (1587078, "a65cc87433180c10a1dccadba5bb28b7"
+                           "88231e81feab2f4fe525bf448d5424e9"),
+    "repeat40k": (29493000, "3b0e89146ef79d2e3850a9ad0860661e"
+                            "30dc2cf88abe0c5948e446171c439200"),
+}
 ROC_GOLDENS = {
     "lognormal10k": dict(
         tp=53070, fn=13089, tn=1988, fp=0, sensitivity=0.8021584364939011,
@@ -910,6 +938,27 @@ def read_filter(path: str, no_tf: bool = False):
         return FrequencyCounts(f, 1e-5, 0.9, 0, no_tf, 3.0, True)
 
 
+def scale_input(bench, name: str, tmpdir: str):
+    """bench.py's scale inputs, built as bench_config_scale40k,
+    bench_config_scale100k and bench_config_repeat40k build them:
+    lognormal reads at 25x of a random genome, or, for repeat40k, of a
+    genome ~24% copies of one 2 kb repeat, with its filter file (the
+    genome's 4,000 most frequent 16-mers).  Returns (reads, filter path
+    or None)."""
+    n_reads, seed_offset = SCALE_INPUTS[name]
+    seed = bench.SEED + seed_offset
+    if name != "repeat40k":
+        return bench.make_reads_placed(n_reads, seed=seed)[0], None
+    genome_len = int(n_reads * 1550 / 25.0)
+    genome = bench.repeat_seeded_genome(genome_len, seed=seed,
+                                        repeat_len=2000, n_copies=300)
+    reads, _, _ = bench.make_reads_placed(n_reads, seed=seed, genome=genome,
+                                          genome_len=genome_len)
+    path = os.path.join(tmpdir, "kmers.txt")
+    bench.write_filter_file(genome, 16, path)
+    return reads, path
+
+
 def ultra_long_mix(bench, seed: int = 4244, genome_len: int = 1_500_000,
                    lens=None):
     """Seed 4244: 16 reads of 131,072-400,000 bp and 1,024 of 2.9 kb,
@@ -1222,6 +1271,132 @@ def run_main_path(ov, reads, kern, n_timed: int = 3):
             raise AssertionError("overlap_self is not deterministic")
     return (lines, counts, cold, statistics.median(times),
             torch.cuda.max_memory_allocated())
+
+
+def peak_rss_bytes() -> int:
+    """This process's peak resident host memory so far."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def check_scale(bench, name: str, lines) -> None:
+    """Raises unless ``lines`` is the native golden of scale input
+    ``name``: its count and its line-set sha256."""
+    want_n, want_sha = SCALE_GOLDENS[name]
+    sha = bench.lineset_sha256(lines)
+    if len(lines) != want_n or sha != want_sha:
+        raise AssertionError(f"{name}: {len(lines)} lines, sha256 {sha}; "
+                             f"native {want_n} lines, sha256 {want_sha}")
+
+
+def scale_run(bench, ov, reads, name: str, kern, need, n_settle: int,
+              n_timed: int) -> dict:
+    """overlap_self on scale input ``name``: a cold run with the launch
+    counters reset before and read after, ``n_settle`` settling runs, a
+    run split into stages (profile_stages.stage_times), then ``n_timed``
+    timed runs.  Every run's line set is held against the golden
+    (check_scale, outside the timed span); a kernel of ``need`` that the
+    cold run did not launch raises.  Each run's wall goes to stderr as it
+    ends.  Returns the numbers, times in seconds."""
+    import torch
+
+    from profile_stages import stage_times
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lines = ov.overlap_self(reads)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"[scale] {name}: a run took {secs:.3f} s, peak RSS "
+              f"{peak_rss_bytes() / 2**30:.3f} GiB", file=sys.stderr,
+              flush=True)
+        return lines, secs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    elements = ov.stats["elements_processed"]
+    reset_counters(kern)
+    lines, cold = run()
+    counts = read_counters(kern)
+    res = dict(input=name, reads=len(reads), cold_s=cold, launches=counts,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               elements_processed=ov.stats["elements_processed"] - elements,
+               largest_hit_chunk=ov.largest_hit_chunk)
+    check_scale(bench, name, lines)
+    res["lines"] = len(lines)
+    del lines
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: the path skipped {missing}: {counts}")
+    res["settle_s"] = []
+    for _ in range(n_settle):
+        lines, secs = run()
+        check_scale(bench, name, lines)
+        del lines
+        res["settle_s"].append(secs)
+    T, pairs, lines, info = stage_times(ov, reads)
+    check_scale(bench, name, lines)
+    del lines
+    res.update(candidate_pairs=pairs, stages_s=T, **info)
+    res["steady_runs_s"] = []
+    for _ in range(n_timed):
+        lines, secs = run()
+        check_scale(bench, name, lines)
+        del lines
+        res["steady_runs_s"].append(secs)
+    res["steady_s"] = (statistics.median(res["steady_runs_s"]) if n_timed
+                       else T["total"])
+    res["peak_rss_bytes"] = peak_rss_bytes()
+    return res
+
+
+def scale_summary(res: dict) -> str:
+    """scale_run's numbers on one line."""
+    stages = ", ".join(f"{k} {v:.3f}" for k, v in res["stages_s"].items())
+    runs = ", ".join(f"{s:.3f}" for s in res["steady_runs_s"])
+    return (f"{res['input']}: {res['reads']:,} reads, {res['store_rows']:,} "
+            f"store rows, {res['candidate_pairs']:,} candidate pairs, "
+            f"{res['elements_processed']:,} hits (elements_processed), "
+            f"largest hit chunk {res['largest_hit_chunk']:,} hits; "
+            f"{res['lines']:,} lines sha256-equal to native; cold "
+            f"{res['cold_s']:.3f} s, settle {res['settle_s']}, steady "
+            f"{res['steady_s']:.3f} s" + (f" (median of {runs})" if runs
+                                          else "")
+            + f"; peak device memory {res['peak_device_bytes'] / 2**30:.3f}"
+            f" GiB (vote {res['vote_peak_bytes'] / 2**30:.3f} GiB), host "
+            f"peak RSS {res['peak_rss_bytes'] / 2**30:.3f} GiB; launches "
+            f"{res['launches']}; stages (s) {stages}")
+
+
+def scale_phase(bench, kern, add, tmpdir: str) -> None:
+    """Phase 14: TorchOverlapper().overlap_self on scale40k and scale100k
+    (a cold run and a steady run split into stages, scale_run), and the
+    CLI in this process on scale40k, each line set equal to the native
+    golden; kernels 1 and 3 launch in each."""
+    from mhap_tpu_torch.pipeline.overlapper import TorchOverlapper
+
+    t14 = time.perf_counter()
+    need = ("min_reduce_w1", "score_pairs")
+    for name in ("scale40k", "scale100k"):
+        reads, _ = scale_input(bench, name, tmpdir)
+        res = scale_run(bench, TorchOverlapper(), reads, name, kern, need,
+                        0, 0)
+        add(res["launches"], need)
+        log(f"[14] {scale_summary(res)}")
+        if name == "scale40k":
+            fa = write_fasta(os.path.join(tmpdir, "scale40k.fa"), reads)
+            reset_counters(kern)
+            lines, secs = cli_in_process(["-s", fa])
+            counts = read_counters(kern)
+            check_scale(bench, name, lines)
+            add(counts, need)
+            log(f"[14] CLI -s scale40k.fa in process: {len(lines):,} lines "
+                f"sha256-equal to native, {secs:.3f} s, launches {counts}")
+            del lines
+        del reads
+    log(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
 
 
 def sharded_phase(bench, kern, add, launches, native_sha, run5, reads10k,
@@ -2480,6 +2655,9 @@ def main() -> int:
 
     # ---- phase 13: kernel 6 and --backend oracle ----
     bits_phase(bench, kern, add, results, reads, tmp.name)
+
+    # ---- phase 14: scale40k and scale100k against native ----
+    scale_phase(bench, kern, add, tmp.name)
 
     for name in path_kernels:
         if launches[name] == 0:

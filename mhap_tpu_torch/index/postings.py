@@ -72,14 +72,16 @@ def chunk_bounds(per_q: list) -> list:
     return [(s, e) for s, e in zip(bounds[:-1], bounds[1:]) if e > s]
 
 
-def vote(postings, query_mh: torch.Tensor, num_min_matches: int):
+def vote(postings, query_mh: torch.Tensor, num_min_matches: int,
+         chunks: list | None = None):
     """Candidate pairs of ``query_mh`` [Q, H] against the postings.
 
     Returns (q_idx, cand) int64 tensors over pairs with
     ``votes >= num_min_matches``, plus the search stats
     ``hits_total`` (every table element processed) and ``distinct``
     (distinct pairs before the threshold).  The hits are expanded in
-    chunks of queries of at most HIT_BUDGET hits (``chunk_bounds``)."""
+    chunks of queries of at most HIT_BUDGET hits (``chunk_bounds``); each
+    chunk's hits are appended to ``chunks`` when it is given."""
     vals, sids = postings
     H, N = vals.shape
     dev = vals.device
@@ -93,6 +95,8 @@ def vote(postings, query_mh: torch.Tensor, num_min_matches: int):
     for s, e in chunk_bounds(cnt.sum(0).tolist()):
         q, cand = expand_hits(sids, left[:, s:e], cnt[:, s:e], s)
         hits_total += q.numel()
+        if chunks is not None:
+            chunks.append(q.numel())
         ukey, n = count_votes(q * N + cand, num_min_matches)
         distinct += n
         outs.append((ukey // N, ukey % N))

@@ -160,6 +160,7 @@ class TorchOverlapper:
         self._keep = (kmer_filter.member if kmer_filter is not None
                       and kmer_filter.remove_unique == 1 else None)
         self.slow_pair_count = 0  # lanes the scorer escalated: always 0
+        self.largest_hit_chunk = 0  # most hits the vote expanded at once
         self.stats = dict(matches_processed=0, sequences_searched=0,
                           elements_processed=0, sequences_hit=0,
                           sequences_fully_compared=0,
@@ -377,8 +378,10 @@ class TorchOverlapper:
         stats."""
         self.stats["sequences_searched"] += len(q_sel)
         qmh = queries.minhash[torch.from_numpy(q_sel).to(self.device)]
+        chunks = []
         q_idx, cand, hits_total, distinct = _postings.vote(
-            index, qmh, self.cfg["num_min_matches"])
+            index, qmh, self.cfg["num_min_matches"], chunks)
+        self.largest_hit_chunk = max([self.largest_hit_chunk, *chunks])
         self.stats["elements_processed"] += hits_total
         self.stats["sequences_hit"] += distinct
         return q_idx.cpu().numpy(), cand.cpu().numpy()

@@ -71,7 +71,9 @@ def device_time(trace_path: str) -> dict:
 
 def stage_times(ov, reads) -> tuple:
     """overlap_self's stages, each synchronised and timed: ({stage:
-    seconds}, candidate pairs, lines)."""
+    seconds}, candidate pairs, sorted lines, {"store_rows": rows of the
+    store, "vote_peak_bytes": peak device memory allocated during the
+    vote})."""
     import numpy as np
     import torch
 
@@ -100,10 +102,13 @@ def stage_times(ov, reads) -> tuple:
         sync()
         t2 = time.perf_counter()
         T["postings"] = t2 - t1
+        torch.cuda.reset_peak_memory_stats()
         qg, cand = ov._candidates(store, index, store,
                                   np.nonzero(store.is_fwd)[0], True)
         sync()
         t3 = time.perf_counter()
+        info = {"store_rows": len(store),
+                "vote_peak_bytes": torch.cuda.max_memory_allocated()}
         T["vote"] = t3 - t2
         out = ov._score_dispatch(store, store, qg.astype(np.int32),
                                  cand.astype(np.int32))
@@ -123,7 +128,7 @@ def stage_times(ov, reads) -> tuple:
         T["sort"], T["total"] = t7 - t6, t7 - t0
     finally:
         ov._sketch_chunk = orig
-    return T, len(qg), len(lines)
+    return T, len(qg), lines, info
 
 
 def main() -> int:
@@ -178,7 +183,8 @@ def main() -> int:
             dt = device_time(path)
             # times to the microsecond, the trace's resolution
             print(json.dumps({
-                "workload": name, "pairs": runs[0][1], "lines": runs[0][2],
+                "workload": name, "pairs": runs[0][1],
+                "lines": len(runs[0][2]),
                 "stage_ms_median_of_3": {k: round(v * 1000, 3)
                                          for k, v in med.items()},
                 "profiled_wall_ms": round(wall * 1000, 3),

@@ -132,7 +132,9 @@ def imported_roots(path: str) -> set:
 
 def port_sources() -> list:
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "profile_stages.py")]
+             os.path.join(REPO, "profile_stages.py"),
+             os.path.join(REPO, "scripts", "torch_scale_check.py"),
+             os.path.join(REPO, "scripts", "scale_goldens.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "mhap_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files

@@ -11,7 +11,10 @@ vote's hit budget and the scorer's chunk lowered so that the ranks run
 several chunks of unequal sizes, 3 reads at D = 4 (an empty rank), a
 read under min_olap_length and one with no k-mer, and at D = 2
 ``overlap_query`` (with and without the self part) and ``-f`` at
---supress-noise 0 and 2 (the bloom) on 20 reads of 3 kb.
+--supress-noise 0 and 2 (the bloom) on 20 reads of 3 kb.  The small job
+at D = 2 and 4 and the mid job at D = 4 are also held, lines and summed
+stats, against the JAX ``ShardedOverlapper`` forced onto its wide
+join-vote (``WIDE_STORE_MIN = 4``), which suppresses by header id.
 """
 
 import jax
@@ -167,6 +170,59 @@ def test_sharded_equals_jax_sharded_and_oracle(runs, small, jax_lines, D):
     assert got == jax_lines
     assert got == op.overlap_self(small, CFG)
     assert len(got) > 0
+
+
+# the JAX sharded overlapper forced onto its wide join-vote, which
+# suppresses by gathered header ids (the ``hid`` mode of
+# mhap_tpu/index/joinvote.py), as tests/test_sharded.py forces it
+WIDE_CASES = [(2, "small"), (4, "small"), (4, "mid")]
+
+
+@pytest.fixture(scope="module")
+def jax_wide():
+    """(D, reads) -> (lines, integer stats, wide-route calls) of a
+    forced-wide JAX ShardedOverlapper on a D-device mesh, one overlapper
+    a D."""
+    overlappers, results = {}, {}
+
+    def run(D, reads):
+        if D not in overlappers:
+            ov = jax_sharded.ShardedOverlapper(
+                jax_sharded.make_mesh(jax.devices()[:D]), CFG)
+            ov.WIDE_STORE_MIN = 4
+            calls = [0]
+            orig = ov._find_matches_wide
+
+            def spy(*a, **k):
+                calls[0] += 1
+                return orig(*a, **k)
+
+            ov._find_matches_wide = spy
+            overlappers[D] = ov, calls
+        key = (D, id(reads))
+        if key not in results:
+            ov, calls = overlappers[D]
+            before = {k: ov.stats[k] for k in _INT_STATS}
+            seen = calls[0]
+            lines = ov.overlap_self(reads)
+            results[key] = (lines, {k: ov.stats[k] - before[k]
+                                    for k in _INT_STATS}, calls[0] - seen)
+        return results[key]
+
+    return run
+
+
+@pytest.mark.parametrize("D,name", WIDE_CASES)
+def test_sharded_equals_jax_wide_sharded(runs, jobs, jax_wide, D, name):
+    """The port's ranks against the JAX sharded wide route on a mesh of
+    as many devices: rank 0's line set equals it, and so do the integer
+    stats summed over the ranks."""
+    want, want_stats, wide_calls = jax_wide(D, jobs[D][name]["reads"])
+    ranks = runs[D][name]
+    assert wide_calls > 0
+    assert ranks[0]["lines"] == want and len(want) > 0
+    assert {k: sum(r["stats"][k] for r in ranks)
+            for k in _INT_STATS} == want_stats
 
 
 def test_small_chunks_are_several_and_uneven(runs, jobs, monkeypatch):
