@@ -1,0 +1,11 @@
+"""The share of the profiled jobs' wall time in which no kernel, copy or
+memset ran on the device: 1 - (union of their intervals) / wall, in %.
+"""
+
+SPANS = []
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
