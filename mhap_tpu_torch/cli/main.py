@@ -46,6 +46,7 @@ import numpy as np
 from ..io import datstore
 from ..io.fasta import list_sequence_files, open_text
 from ..io.formats import write_lines
+from ..utils import trace
 from .options import PRESETS, _load_reads, build_options, options_to_cfg
 
 
@@ -119,15 +120,17 @@ def main(argv=None, device="cuda", comm=None) -> int:
             print("Running with these settings:", file=sys.stderr)
             print(o, file=sys.stderr)
             t_total = time.time()
-            if backend == "oracle":
-                run_oracle(o)
-            else:
-                ov = build_overlapper(o, device, comm if backend == "sharded"
-                                      else None)
-                if p_file:
-                    run_precompute(o, ov)
+            with trace.span("job") as job:
+                if backend == "oracle":
+                    run_oracle(o)
                 else:
-                    run_overlap(o, ov)
+                    ov = build_overlapper(o, device, comm if backend ==
+                                          "sharded" else None)
+                    if p_file:
+                        run_precompute(o, ov)
+                    else:
+                        run_overlap(o, ov)
+                    job.set_counters(ov.stats)
             print(f"Total time (s): {time.time() - t_total}",
                   file=sys.stderr)
     finally:
@@ -178,7 +181,7 @@ def load_filter(o, oracle: bool = False):
     offset = rw if 0.0 <= rw < 1.0 else 0.0
     t0 = time.time()
     print(f"Reading in filter file {path}.", file=sys.stderr)
-    with open_text(path) as f:
+    with trace.span("load"), open_text(path) as f:
         fc = FrequencyCounts(
             f, o.get("--filter-threshold").value, offset,
             o.get("--supress-noise").value, o.get("--no-tf").value,

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import os
 
+from ..utils import trace
+
 
 class Option:
     def __init__(self, name, desc, default):
@@ -177,7 +179,8 @@ def _load_reads(path: str, store_full_id: bool):
     from ..io.fasta import read_sequences
 
     headers, reads = [], []
-    for h, s in read_sequences(path, store_full_id):
-        headers.append(h)
-        reads.append(s)
+    with trace.span("load"):
+        for h, s in read_sequences(path, store_full_id):
+            headers.append(h)
+            reads.append(s)
     return headers if store_full_id else None, reads

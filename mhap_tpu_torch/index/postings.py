@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
+
 I64 = torch.int64
 HIT_BUDGET = 1 << 25  # hits expanded at once (~1 GiB of int64 temporaries)
 
@@ -34,9 +36,10 @@ def expand_hits(sids, left, cnt, q0: int):
     N = sids.shape[1]
     Qc = left.shape[1]
     flat_cnt = cnt.reshape(-1)
-    nz = torch.nonzero(flat_cnt).squeeze(1)
-    c = flat_cnt[nz]
-    tot = int(c.sum())
+    with trace.span("vote.wait"):  # the sizes come to the host
+        nz = torch.nonzero(flat_cnt).squeeze(1)
+        c = flat_cnt[nz]
+        tot = int(c.sum())
     slot = nz // Qc
     start = slot * N + left.reshape(-1)[nz]
     run0 = torch.cumsum(c, 0) - c
@@ -52,9 +55,10 @@ def count_votes(keys: torch.Tensor, num_min_matches: int):
     """The distinct ``q * N + cand`` keys that occur at least
     num_min_matches times in ``keys``, sorted, and the number of distinct
     keys."""
-    ukey, votes = torch.unique_consecutive(torch.sort(keys).values,
-                                           return_counts=True)
-    return ukey[votes >= num_min_matches], ukey.numel()
+    keys = torch.sort(keys).values
+    with trace.span("vote.wait"):  # the sizes come to the host
+        ukey, votes = torch.unique_consecutive(keys, return_counts=True)
+        return ukey[votes >= num_min_matches], ukey.numel()
 
 
 def chunk_bounds(per_q: list) -> list:
@@ -92,7 +96,9 @@ def vote(postings, query_mh: torch.Tensor, num_min_matches: int,
     cnt = torch.searchsorted(vals, qT, right=True) - left
     hits_total, distinct = 0, 0
     outs = []
-    for s, e in chunk_bounds(cnt.sum(0).tolist()):
+    with trace.span("vote.wait"):
+        per_q = cnt.sum(0).tolist()
+    for s, e in chunk_bounds(per_q):
         q, cand = expand_hits(sids, left[:, s:e], cnt[:, s:e], s)
         hits_total += q.numel()
         if chunks is not None:

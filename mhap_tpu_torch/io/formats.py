@@ -8,6 +8,8 @@ M4 is the reference's format (impl/MatchResult.java:98-113):
 
 from __future__ import annotations
 
+from ..utils import trace
+
 
 def m4_to_paf(line: str) -> str:
     """One M4 line as PAF: qname qlen qstart qend strand tname tlen tstart
@@ -32,7 +34,8 @@ def m4_to_paf(line: str) -> str:
 
 def write_lines(lines, out, paf: bool = False) -> int:
     n = 0
-    for line in lines:
-        out.write((m4_to_paf(line) if paf else line) + "\n")
-        n += 1
+    with trace.span("write"):
+        for line in lines:
+            out.write((m4_to_paf(line) if paf else line) + "\n")
+            n += 1
     return n

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .minhash import (JUMP_BITS, min_reduce_w1_ref, weighted_min_reduce_ref,
                       xorshift_jump_table)
@@ -173,7 +174,7 @@ def weighted_min_reduce(h: torch.Tensor, weight: torch.Tensor,
     # the heavy k-mers are listed on a side stream, so that the host's wait
     # for their count, and its launches of the passes after, overlap the
     # light pass instead of following it
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(side), trace.span("sketch.wait"):
         flat = heavy_kmers(weight, active, heavy_min)
     main.wait_stream(side)
     flat.record_stream(main)

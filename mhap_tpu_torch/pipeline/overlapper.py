@@ -44,6 +44,7 @@ from ..ops.minhash_kernels import min_reduce_w1, weighted_min_reduce
 from ..ops.scorer import COLS as SCORE_COLS
 from ..ops.scorer import N_COLS
 from ..ops.scorer_kernels import score_pairs as _score_pairs_kernel
+from ..utils import trace
 from ..utils.native import format_m4
 
 DEFAULTS = dict(
@@ -164,7 +165,7 @@ class TorchOverlapper:
         self.stats = dict(matches_processed=0, sequences_searched=0,
                           elements_processed=0, sequences_hit=0,
                           sequences_fully_compared=0,
-                          minhash_search_time=0.0, sort_merge_time=0.0)
+                          minhash_search_time=0.0)
 
     # ---------------- sketching ----------------
 
@@ -176,8 +177,9 @@ class TorchOverlapper:
         k1, k2 = cfg["kmer_size"], cfg["ordered_kmer_size"]
         H, S = cfg["num_hashes"], cfg["ordered_sketch_size"]
         dev = self.device
-        seq = torch.from_numpy(codes).to(dev)
-        ln = torch.from_numpy(lens).to(dev).to(torch.int64)[:, None]
+        with trace.span("sketch.wait"):
+            seq = torch.from_numpy(codes).to(dev)
+            ln = torch.from_numpy(lens).to(dev).to(torch.int64)[:, None]
         R, W = codes.shape
         valid1 = torch.arange(W - k1 + 1, device=dev)[None, :] < ln - k1 + 1
         h = _murmur3.kmer_hashes_128(seq, k1)
@@ -190,13 +192,16 @@ class TorchOverlapper:
             n_active = valid1.sum(dim=1)
             # rows with a repeated k-mer need the weighted kernel; the
             # flags come to the host here, synchronously
-            dup = _minhash.dup_rows(h, valid1).cpu().numpy()
+            flags = _minhash.dup_rows(h, valid1)
+            with trace.span("sketch.wait"):
+                dup = flags.cpu().numpy()
             if not dup.any():
                 mh = min_reduce_w1(h, valid1, H)
             else:
                 mh = torch.empty((R, H), dtype=torch.int32, device=dev)
-                plain = torch.from_numpy(np.nonzero(~dup)[0]).to(dev)
-                rep = torch.from_numpy(np.nonzero(dup)[0]).to(dev)
+                with trace.span("sketch.wait"):
+                    plain = torch.from_numpy(np.nonzero(~dup)[0]).to(dev)
+                    rep = torch.from_numpy(np.nonzero(dup)[0]).to(dev)
                 if plain.numel():
                     mh[plain] = min_reduce_w1(h[plain], valid1[plain], H)
                 mh[rep] = _minhash.minhash_weighted_rows(
@@ -219,89 +224,104 @@ class TorchOverlapper:
         cfg = self.cfg
         k1, k2 = cfg["kmer_size"], cfg["ordered_kmer_size"]
         H, S = cfg["num_hashes"], cfg["ordered_sketch_size"]
-        entries = []  # (header_id, is_fwd, header, codes)
-        for i, r in enumerate(reads):
-            if len(r) < cfg["min_olap_length"]:
-                continue
-            hid = i + 1 + offset
-            hdr = headers[i] if headers is not None else None
-            codes = np.frombuffer(r.upper().encode("ascii"), dtype=np.uint8)
-            entries.append((hid, True, hdr, codes))
-            if do_rc:
-                entries.append((hid, False, hdr, _rc_codes(codes)))
-        N = len(entries)
         dev = self.device
-        lens = np.asarray([len(e[3]) for e in entries], np.int64)
-        mh = torch.empty((N, H), dtype=torch.int32, device=dev)
-        oh = torch.empty((N, S), dtype=torch.int32, device=dev)
-        op = torch.empty((N, S), dtype=torch.int32, device=dev)
-        om = torch.empty((N,), dtype=torch.int32, device=dev)
-        n_active = torch.empty((N,), dtype=torch.int64, device=dev)
-        # length bucketing: sorted by length, each chunk trimmed to its
-        # longest read (every [B, n] op scales with the width) and cut to
-        # CELLS cells, so long reads come last in chunks of a few rows
-        order = np.argsort(lens, kind="stable")
+        with trace.span("sketch"):
+            with trace.span("sketch.prepare"):
+                entries = []  # (header_id, is_fwd, header, codes)
+                for i, r in enumerate(reads):
+                    if len(r) < cfg["min_olap_length"]:
+                        continue
+                    hid = i + 1 + offset
+                    hdr = headers[i] if headers is not None else None
+                    codes = np.frombuffer(r.upper().encode("ascii"),
+                                          dtype=np.uint8)
+                    entries.append((hid, True, hdr, codes))
+                    if do_rc:
+                        entries.append((hid, False, hdr, _rc_codes(codes)))
+                lens = np.asarray([len(e[3]) for e in entries], np.int64)
+            N = len(entries)
+            mh = torch.empty((N, H), dtype=torch.int32, device=dev)
+            oh = torch.empty((N, S), dtype=torch.int32, device=dev)
+            op = torch.empty((N, S), dtype=torch.int32, device=dev)
+            om = torch.empty((N,), dtype=torch.int32, device=dev)
+            n_active = torch.empty((N,), dtype=torch.int64, device=dev)
+            # length bucketing: sorted by length, each chunk trimmed to its
+            # longest read (every [B, n] op scales with the width) and cut
+            # to CELLS cells, so long reads come last in chunks of a few rows
+            order = np.argsort(lens, kind="stable")
 
-        def width(j):  # padded width of a chunk whose longest entry is j
-            return max(-(-int(lens[j]) // 64) * 64, k1, k2)
+            def width(j):  # padded width of a chunk whose longest entry is j
+                return max(-(-int(lens[j]) // 64) * 64, k1, k2)
 
-        s = 0
-        while s < N:
-            R = min(self.ROWS, N - s)
-            if R * width(order[s + R - 1]) > self.CELLS:
-                # fewer rows are no wider, so R * W stays within CELLS
-                R = max(1, self.CELLS // width(order[s + R - 1]))
-            idx = order[s:s + R]
-            W = width(idx[-1])
-            codes = np.zeros((R, W), np.uint8)
-            for r, j in enumerate(idx):
-                codes[r, :lens[j]] = entries[j][3]
-            out = self._sketch_chunk(codes, lens[idx].astype(np.int32))
-            rows = torch.from_numpy(idx).to(dev)
-            for col, val in zip((mh, oh, op, om, n_active), out):
-                col[rows] = val
-            s += R
-        # zero-ngram skip rules
-        mh_valid = n_active.cpu().numpy() > 0
-        keep = np.ones(N, bool)
-        for j, (hid, fwd, _hdr, _c) in enumerate(entries):
-            if not mh_valid[j]:
-                keep[j] = False
-                if fwd and do_rc and j + 1 < N and entries[j + 1][0] == hid:
-                    keep[j + 1] = False
-        sel = np.nonzero(keep)[0]
-        sel_t = torch.from_numpy(sel).to(dev)
-        nk = np.maximum(lens[sel] - k2 + 1, 0).astype(np.int32)
-        return SketchStore(
-            header_id=np.asarray([entries[j][0] for j in sel], np.int64),
-            is_fwd=np.asarray([entries[j][1] for j in sel], bool),
-            length=lens[sel].astype(np.int32),
-            headers=[entries[j][2] for j in sel],
-            minhash=mh[sel_t].contiguous(),
-            ordered_h=oh[sel_t].contiguous(),
-            ordered_p=op[sel_t].contiguous(),
-            ordered_m=om[sel_t].contiguous(),
-            num_kmers=torch.from_numpy(nk).to(dev))
+            s = 0
+            while s < N:
+                with trace.span("sketch.chunk"):
+                    R = min(self.ROWS, N - s)
+                    if R * width(order[s + R - 1]) > self.CELLS:
+                        # fewer rows are no wider, so R * W stays in CELLS
+                        R = max(1, self.CELLS // width(order[s + R - 1]))
+                    idx = order[s:s + R]
+                    W = width(idx[-1])
+                    with trace.span("sketch.pack"):
+                        codes = np.zeros((R, W), np.uint8)
+                        for r, j in enumerate(idx):
+                            codes[r, :lens[j]] = entries[j][3]
+                    out = self._sketch_chunk(codes,
+                                             lens[idx].astype(np.int32))
+                    with trace.span("sketch.wait"):
+                        rows = torch.from_numpy(idx).to(dev)
+                    for col, val in zip((mh, oh, op, om, n_active), out):
+                        col[rows] = val
+                s += R
+            with trace.span("sketch.skip"):
+                # zero-ngram skip rules
+                with trace.span("sketch.wait"):
+                    mh_valid = n_active.cpu().numpy() > 0
+                keep = np.ones(N, bool)
+                for j, (hid, fwd, _hdr, _c) in enumerate(entries):
+                    if not mh_valid[j]:
+                        keep[j] = False
+                        if (fwd and do_rc and j + 1 < N
+                                and entries[j + 1][0] == hid):
+                            keep[j + 1] = False
+                sel = np.nonzero(keep)[0]
+                with trace.span("sketch.wait"):
+                    sel_t = torch.from_numpy(sel).to(dev)
+                nk = np.maximum(lens[sel] - k2 + 1, 0).astype(np.int32)
+                cols = [c[sel_t].contiguous() for c in (mh, oh, op, om)]
+                with trace.span("sketch.wait"):
+                    num_kmers = torch.from_numpy(nk).to(dev)
+                return SketchStore(
+                    header_id=np.asarray([entries[j][0] for j in sel],
+                                         np.int64),
+                    is_fwd=np.asarray([entries[j][1] for j in sel], bool),
+                    length=lens[sel].astype(np.int32),
+                    headers=[entries[j][2] for j in sel],
+                    minhash=cols[0], ordered_h=cols[1], ordered_p=cols[2],
+                    ordered_m=cols[3], num_kmers=num_kmers)
 
     # ---------------- vote ----------------
 
     def _build_index(self, store: SketchStore):
         """The store's sorted postings, the index for _find_matches."""
-        return _postings.build_postings(store.minhash)
+        with trace.span("index"):
+            return _postings.build_postings(store.minhash)
 
     # ---------------- scoring ----------------
 
     def _score_dispatch(self, qs: SketchStore, cs: SketchStore,
                         qi: np.ndarray, ci: np.ndarray) -> dict:
         """Kernel 3 over every pair, chunked; columns as host arrays."""
-        dev = self.device
+        dev, step = self.device, self.SCORE_CHUNK
         parts = []
-        for s in range(0, len(qi), self.SCORE_CHUNK):
-            q = torch.from_numpy(qi[s:s + self.SCORE_CHUNK]).to(dev)
-            c = torch.from_numpy(ci[s:s + self.SCORE_CHUNK]).to(dev)
-            parts.append(_score_pairs_kernel(
-                qs.scorer_cols(), cs.scorer_cols(), q, c,
-                float(self.cfg["max_shift"])).cpu().numpy())
+        for s in range(0, len(qi), step):
+            with trace.span("score.wait"):
+                q = torch.from_numpy(qi[s:s + step]).to(dev)
+                c = torch.from_numpy(ci[s:s + step]).to(dev)
+            out = _score_pairs_kernel(qs.scorer_cols(), cs.scorer_cols(), q,
+                                      c, float(self.cfg["max_shift"]))
+            with trace.span("score.wait"):
+                parts.append(out.cpu().numpy())
         return score_columns(parts)
 
     def _identity_scores(self, out: dict):
@@ -329,10 +349,12 @@ class TorchOverlapper:
                     qi: np.ndarray, ci: np.ndarray):
         """Stage-2 scores of (qs[qi[t]], cs[ci[t]]).  Returns (score
         float64 [T], raw float64 [T], edges int32 [T, 4])."""
-        out = self._score_dispatch(qs, cs, qi.astype(np.int32),
-                                   ci.astype(np.int32))
+        with trace.span("score"):
+            out = self._score_dispatch(qs, cs, qi.astype(np.int32),
+                                       ci.astype(np.int32))
         self.slow_pair_count += int(out["escal"].sum())
-        return self._identity_scores(out)
+        with trace.span("identity"):
+            return self._identity_scores(out)
 
     # ---------------- match driving ----------------
 
@@ -377,14 +399,16 @@ class TorchOverlapper:
         num_min_matches votes, as host int64 arrays; adds the search
         stats."""
         self.stats["sequences_searched"] += len(q_sel)
-        qmh = queries.minhash[torch.from_numpy(q_sel).to(self.device)]
+        with trace.span("vote.wait"):
+            rows = torch.from_numpy(q_sel).to(self.device)
         chunks = []
         q_idx, cand, hits_total, distinct = _postings.vote(
-            index, qmh, self.cfg["num_min_matches"], chunks)
+            index, queries.minhash[rows], self.cfg["num_min_matches"], chunks)
         self.largest_hit_chunk = max([self.largest_hit_chunk, *chunks])
         self.stats["elements_processed"] += hits_total
         self.stats["sequences_hit"] += distinct
-        return q_idx.cpu().numpy(), cand.cpu().numpy()
+        with trace.span("vote.wait"):
+            return q_idx.cpu().numpy(), cand.cpu().numpy()
 
     def _candidates(self, store: SketchStore, index, queries: SketchStore,
                     q_sel: np.ndarray, to_self: bool):
@@ -415,16 +439,16 @@ class TorchOverlapper:
         """Candidates, then scoring and formatting of the accepted pairs."""
         if len(q_sel) == 0:
             return []
-        qg, cand = self._candidates(store, index, queries, q_sel, to_self)
-        t0 = time.perf_counter()
+        with trace.span("vote"):
+            qg, cand = self._candidates(store, index, queries, q_sel,
+                                        to_self)
         self.stats["sequences_fully_compared"] += len(qg)
         score, raw, edges = self.score_pairs(queries, store, qg, cand)
         acc = score >= self.cfg["threshold"]
         self.stats["matches_processed"] += int(acc.sum())
-        lines = self._format(queries, store, qg[acc], cand[acc],
-                             score[acc], raw[acc], edges[acc])
-        self.stats["sort_merge_time"] += time.perf_counter() - t0
-        return lines
+        with trace.span("format"):
+            return self._format(queries, store, qg[acc], cand[acc],
+                                score[acc], raw[acc], edges[acc])
 
     # ---------------- stores and results (parallel/sharded.py splits
     # each over its ranks) ----------------
@@ -434,9 +458,10 @@ class TorchOverlapper:
         """A ``.dat`` sketch file as a store on this overlapper's device."""
         from ..io import datstore
 
-        return datstore.read_dat(path, offset, fwd_only,
-                                 self.cfg["ordered_sketch_size"],
-                                 self.device)
+        with trace.span("load"):
+            return datstore.read_dat(path, offset, fwd_only,
+                                     self.cfg["ordered_sketch_size"],
+                                     self.device)
 
     def whole_store(self, store: SketchStore):
         """The store whole, as ``-p`` writes it to a ``.dat`` file."""
@@ -444,7 +469,8 @@ class TorchOverlapper:
 
     def _gather_lines(self, lines: list[str]) -> list[str]:
         """The run's line set, sorted."""
-        return sorted(lines)
+        with trace.span("sort"):
+            return sorted(lines)
 
     def total_stats(self) -> dict:
         """The search stats of every run so far (the CLI's stats block)."""
