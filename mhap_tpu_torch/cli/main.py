@@ -131,6 +131,7 @@ def main(argv=None, device="cuda", comm=None) -> int:
                     else:
                         run_overlap(o, ov)
                     job.set_counters(ov.stats)
+                    job.set_counters(ov.m4_counts)
             print(f"Total time (s): {time.time() - t_total}",
                   file=sys.stderr)
     finally:

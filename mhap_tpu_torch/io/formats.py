@@ -3,12 +3,59 @@
 M4 is the reference's format (impl/MatchResult.java:98-113):
   [Aid] [Bid] [1-score] [rawScore] [AisRC] [Astart] [Aend] [Alen]
   [BisRC] [Bstart] [Bend] [Blen]
-``--paf`` converts each line to PAF.
+``--paf`` converts each line to PAF.  A batch of lines travels as
+``M4Lines``, one byte buffer, from formatting to the output.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..utils import trace
+from ..utils.native import m4_sort
+
+
+class M4Lines:
+    """A batch of M4 lines as one UTF-8 buffer: ``data``, a uint8 array,
+    holds ``count`` lines, each ended by a newline.  ``+`` concatenates
+    batches (or a ``list[str]``); ``sorted()`` orders the lines as
+    Python's ``sorted`` orders their ``str``; ``tolist()`` and iteration
+    give the ``str`` lines."""
+
+    __slots__ = ("data", "count")
+
+    def __init__(self, data=None, count: int = 0):
+        self.data = np.zeros(0, np.uint8) if data is None else data
+        self.count = count
+
+    @classmethod
+    def of(cls, lines) -> "M4Lines":
+        """``lines`` as a batch: an ``M4Lines`` as it is, or str lines."""
+        if isinstance(lines, M4Lines):
+            return lines
+        lines = list(lines)
+        text = "\n".join(lines) + "\n" if lines else ""
+        return cls(np.frombuffer(text.encode(), np.uint8), len(lines))
+
+    def __add__(self, other) -> "M4Lines":
+        other = M4Lines.of(other)
+        return M4Lines(np.concatenate([self.data, other.data]),
+                       self.count + other.count)
+
+    def __len__(self) -> int:
+        return self.count
+
+    def __iter__(self):
+        return iter(self.tolist())
+
+    def sorted(self) -> "M4Lines":
+        return M4Lines(m4_sort(self.data), self.count)
+
+    def text(self) -> str:
+        return str(self.data, "utf-8")
+
+    def tolist(self) -> list[str]:
+        return self.text().split("\n")[:-1]
 
 
 def m4_to_paf(line: str) -> str:
@@ -33,9 +80,11 @@ def m4_to_paf(line: str) -> str:
 
 
 def write_lines(lines, out, paf: bool = False) -> int:
-    n = 0
+    """Writes ``lines`` (an ``M4Lines`` or a ``list[str]``) to ``out`` in
+    one write, as PAF with ``paf``; returns the count of lines."""
+    lines = M4Lines.of(lines)
     with trace.span("write"):
-        for line in lines:
-            out.write((m4_to_paf(line) if paf else line) + "\n")
-            n += 1
-    return n
+        if lines.count:
+            out.write("".join(m4_to_paf(line) + "\n" for line in lines)
+                      if paf else lines.text())
+    return lines.count

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..index import postings as _postings
+from ..io.formats import M4Lines
 from ..ops.scorer_kernels import score_pairs as _score_pairs_kernel
 from ..pipeline.overlapper import SketchStore, TorchOverlapper, score_columns
 
@@ -244,12 +245,13 @@ class ShardedOverlapper(TorchOverlapper):
 
     # ---------------- results ----------------
 
-    def _gather_lines(self, lines: list[str]) -> list[str]:
-        blobs = self.comm.gather_bytes("\n".join(lines).encode())
+    def _gather_lines(self, lines) -> M4Lines:
+        """Every rank's lines, sorted on rank 0 (empty elsewhere)."""
+        blobs = self.comm.gather_bytes(M4Lines.of(lines).data.tobytes())
         if blobs is None:
-            return []
-        return sorted(line for b in blobs if b
-                      for line in b.decode().split("\n"))
+            return M4Lines()
+        data = np.frombuffer(b"".join(blobs), np.uint8)
+        return M4Lines(data, int(np.count_nonzero(data == 10))).sorted()
 
     def total_stats(self) -> dict:
         """Integer stats summed over ranks, times the largest rank's."""

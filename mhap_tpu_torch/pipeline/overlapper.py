@@ -37,6 +37,7 @@ import torch
 
 from ..device import resolve_device
 from ..index import postings as _postings
+from ..io.formats import M4Lines
 from ..ops import bottomk as _bottomk
 from ..ops import minhash as _minhash
 from ..ops import murmur3 as _murmur3
@@ -45,7 +46,7 @@ from ..ops.scorer import COLS as SCORE_COLS
 from ..ops.scorer import N_COLS
 from ..ops.scorer_kernels import score_pairs as _score_pairs_kernel
 from ..utils import trace
-from ..utils.native import format_m4
+from ..utils.native import m4_format
 
 DEFAULTS = dict(
     kmer_size=16,
@@ -140,7 +141,6 @@ class TorchOverlapper:
     # to 41 rows; the murmur3 and sort temporaries scale with it
     CELLS = 1 << 24
     SCORE_CHUNK = 1 << 20        # pairs per scorer launch
-    NATIVE_FORMAT_MIN = 65536    # batches this large format in C
 
     def __init__(self, cfg=None, device="cuda", kmer_filter=None):
         self.cfg = dict(DEFAULTS)
@@ -166,6 +166,9 @@ class TorchOverlapper:
                           elements_processed=0, sequences_hit=0,
                           sequences_fully_compared=0,
                           minhash_search_time=0.0)
+        # M4 lines formatted in C and by Python's %-format: the tracer's
+        # job counters, kept out of ``stats`` (MhapMain's)
+        self.m4_counts = dict(m4_lines_native=0, m4_lines_python=0)
 
     # ---------------- sketching ----------------
 
@@ -359,12 +362,13 @@ class TorchOverlapper:
     # ---------------- match driving ----------------
 
     def _format(self, qs: SketchStore, cs: SketchStore, qi, ci, score, raw,
-                edges) -> list[str]:
+                edges) -> M4Lines:
         """MatchResult coordinate flips + M4 formatting (MatchResult.java;
-        overlapper.py:1839)."""
+        overlapper.py:1839): in C (``utils/native.m4_format``) unless a
+        store carries header strings, then Python's %-format."""
         T = len(qi)
         if T == 0:
-            return []
+            return M4Lines()
         qi = np.asarray(qi, np.int64)
         ci = np.asarray(ci, np.int64)
         qlen = qs.length[qi].astype(np.int64)
@@ -381,18 +385,20 @@ class TorchOverlapper:
         raw = np.asarray(raw, np.float64)
         qrc = np.where(qf, 0, 1)
         crc = np.where(cf, 0, 1)
-        if (T >= self.NATIVE_FORMAT_MIN
-                and not any(qs.headers) and not any(cs.headers)):
-            return format_m4(qs.header_id[qi], cs.header_id[ci], err,
-                             raw, qrc, fa1, fa2, qlen, crc, fb1, fb2,
-                             clen)
+        if not any(qs.headers) and not any(cs.headers):
+            self.m4_counts["m4_lines_native"] += T
+            return M4Lines(m4_format(qs.header_id[qi], cs.header_id[ci], err,
+                                     raw, qrc, fa1, fa2, qlen, crc, fb1, fb2,
+                                     clen), T)
+        self.m4_counts["m4_lines_python"] += T
         disp_q = [qs.display(int(q)) for q in qi]
         disp_c = [cs.display(int(c)) for c in ci]
-        return ["%s %s %.6f %.6f %d %d %d %d %d %d %d %d" % t
-                for t in zip(disp_q, disp_c, err.tolist(), raw.tolist(),
-                             qrc.tolist(), fa1.tolist(), fa2.tolist(),
-                             qlen.tolist(), crc.tolist(), fb1.tolist(),
-                             fb2.tolist(), clen.tolist())]
+        return M4Lines.of(
+            ["%s %s %.6f %.6f %d %d %d %d %d %d %d %d" % t
+             for t in zip(disp_q, disp_c, err.tolist(), raw.tolist(),
+                          qrc.tolist(), fa1.tolist(), fa2.tolist(),
+                          qlen.tolist(), crc.tolist(), fb1.tolist(),
+                          fb2.tolist(), clen.tolist())])
 
     def _vote(self, index, queries: SketchStore, q_sel: np.ndarray):
         """Pairs (position in ``q_sel``, store row) with at least
@@ -435,10 +441,10 @@ class TorchOverlapper:
         return qg[keepm], cand[keepm]
 
     def _find_matches(self, store: SketchStore, index, queries: SketchStore,
-                      q_sel: np.ndarray, to_self: bool) -> list[str]:
+                      q_sel: np.ndarray, to_self: bool) -> M4Lines:
         """Candidates, then scoring and formatting of the accepted pairs."""
         if len(q_sel) == 0:
-            return []
+            return M4Lines()
         with trace.span("vote"):
             qg, cand = self._candidates(store, index, queries, q_sel,
                                         to_self)
@@ -467,10 +473,11 @@ class TorchOverlapper:
         """The store whole, as ``-p`` writes it to a ``.dat`` file."""
         return store
 
-    def _gather_lines(self, lines: list[str]) -> list[str]:
-        """The run's line set, sorted."""
+    def _gather_lines(self, lines) -> M4Lines:
+        """The run's line set (an ``M4Lines`` or a ``list[str]``),
+        sorted."""
         with trace.span("sort"):
-            return sorted(lines)
+            return M4Lines.of(lines).sorted()
 
     def total_stats(self) -> dict:
         """The search stats of every run so far (the CLI's stats block)."""
@@ -482,14 +489,14 @@ class TorchOverlapper:
         index = self._build_index(store)
         q_sel = np.nonzero(store.is_fwd)[0]
         return self._gather_lines(
-            self._find_matches(store, index, store, q_sel, True))
+            self._find_matches(store, index, store, q_sel, True)).tolist()
 
     def overlap_query(self, box_reads: list[str], query_reads: list[str],
                       no_self: bool = False) -> list[str]:
         """Box-vs-query run (MhapMain usage 1 with -q)."""
         box = self.sketch_reads(box_reads)
         index = self._build_index(box)
-        lines = []
+        lines = M4Lines()
         if not no_self:
             q_sel = np.nonzero(box.is_fwd)[0]
             lines += self._find_matches(box, index, box, q_sel, True)
@@ -497,4 +504,4 @@ class TorchOverlapper:
                                     do_rc=False)
         lines += self._find_matches(box, index, queries,
                                     np.arange(len(queries)), False)
-        return self._gather_lines(lines)
+        return self._gather_lines(lines).tolist()

@@ -1,24 +1,37 @@
-"""ctypes binding of the repository's native C++ library
-(``native/build/libmhapnative.so``), built with ``make -C native`` on
-first use.  The port takes three functions from it: the bulk M4
-formatter, the local Smith-Waterman of EstimateROC's per-pair adjudication
-(native/sw.cc), and canonical MurmurHash3 x86_32 over a byte string
-(native/murmur3.c; CountMin's object hashing); ``library()`` hands the loaded library to callers that declare other
-entries themselves (chip_smoke.py's native scorer check).
+"""ctypes bindings of the host C++ the port calls.
+
+The repository's native library (``native/build/libmhapnative.so``),
+built with ``make -C native`` on first use, gives the port the local
+Smith-Waterman of EstimateROC's per-pair adjudication (native/sw.cc) and
+canonical MurmurHash3 x86_32 over a byte string (native/murmur3.c;
+CountMin's object hashing); ``library()`` hands the loaded library to
+callers that declare other entries themselves (chip_smoke.py's native
+scorer check).
+
+The port's own M4 line library (``mhap_tpu_torch/csrc/m4_lines.cc``)
+formats and sorts a job's M4 lines as one byte buffer
+(``m4_format``, ``m4_sort``).  It is built with the host's C++ compiler
+(``$CXX``, else ``g++``) on first use into ``mhap_tpu_torch/build/``,
+named by a hash of the source, so an edited source rebuilds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 from functools import lru_cache
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "build", "libmhapnative.so")
+_M4_SRC = os.path.join(_PKG, "csrc", "m4_lines.cc")
+_M4_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall"]
 
 
 @lru_cache(maxsize=1)
@@ -27,9 +40,6 @@ def library() -> ctypes.CDLL:
         subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
                        capture_output=True)
     lib = ctypes.CDLL(_LIB_PATH)
-    lib.mhap_format_m4.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
-    lib.mhap_format_m4.restype = ctypes.c_longlong
     lib.mhap_sw_align.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -41,27 +51,85 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def format_m4(qid, cid, err, raw, qrc, a1, a2, ql, crc, b1, b2, cl):
-    """Bulk M4 line formatting (MatchResult.java:98-113) in C, byte-equal
-    to the Python %-format loop (native/format_m4.cc).  Returns a
-    list[str]."""
+@lru_cache(maxsize=1)
+def m4_library() -> ctypes.CDLL:
+    """The M4 line library, built on first call unless the library for
+    the source's hash exists."""
+    with open(_M4_SRC, "rb") as f:
+        h = hashlib.sha256(" ".join(_M4_FLAGS).encode() + b"\0" + f.read())
+    build = os.path.join(_PKG, "build")
+    path = os.path.join(build, f"libm4_lines_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(path):
+        os.makedirs(build, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=build)
+        try:
+            lib = os.path.join(tmp, "lib.so")
+            r = subprocess.run([os.environ.get("CXX", "g++"), *_M4_FLAGS,
+                                _M4_SRC, "-o", lib],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(f"building {_M4_SRC} failed "
+                                   f"({r.returncode}):\n{r.stderr}")
+            os.replace(lib, path)  # whole, or not at all
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    lib = ctypes.CDLL(path)
+    lib.mhap_m4_format.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+    lib.mhap_m4_format.restype = ctypes.c_longlong
+    lib.mhap_m4_sort.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_void_p, ctypes.c_int]
+    lib.mhap_m4_sort.restype = ctypes.c_longlong
+    return lib
+
+
+M4_LINE_GUESS = 160  # bytes a line the first buffer allows
+M4_LINE_MAX = 1024   # the longest line m4_lines.cc can write
+
+
+def host_threads() -> int:
+    """The CPUs this process may run on: the M4 line library's threads
+    (it starts one for every 16,384 lines at most)."""
+    return len(os.sched_getaffinity(0))
+
+
+def m4_format(qid, cid, err, raw, qrc, a1, a2, ql, crc, b1, b2, cl,
+              threads=None) -> np.ndarray:
+    """The M4 lines (MatchResult.java:98-113) of the columns, each ended
+    by a newline, as one uint8 buffer; byte-equal to the Python %-format
+    loop (``csrc/m4_lines.cc``).  ``threads``: at most that many threads
+    (default ``host_threads()``)."""
     n = len(qid)
-    if n == 0:
-        return []
+    ints = [np.ascontiguousarray(c, dtype=np.int64)
+            for c in (qid, cid, qrc, a1, a2, ql, crc, b1, b2, cl)]
+    err = np.ascontiguousarray(err, dtype=np.float64)
+    raw = np.ascontiguousarray(raw, dtype=np.float64)
+    if not all(len(c) == n for c in (*ints, err, raw)):
+        raise ValueError("M4 columns of unequal lengths")
+    qid, cid, qrc, a1, a2, ql, crc, b1, b2, cl = ints
+    cols = [c.ctypes.data for c in
+            (qid, cid, err, raw, qrc, a1, a2, ql, crc, b1, b2, cl)]
+    for per_line in (M4_LINE_GUESS, M4_LINE_MAX):
+        # the pages of the buffer past the lines are never touched
+        buf = np.empty(n * per_line + M4_LINE_MAX, dtype=np.uint8)
+        total = m4_library().mhap_m4_format(
+            *cols, n, buf.ctypes.data, buf.size, threads or host_threads())
+        if total >= 0:
+            return buf[:total]
+    raise RuntimeError("mhap_m4_format: buffer overflow")
 
-    def col(a, dtype):
-        return np.ascontiguousarray(a, dtype=dtype)
 
-    cols = (col(qid, np.int64), col(cid, np.int64), col(err, np.float64),
-            col(raw, np.float64), col(qrc, np.int32), col(a1, np.int64),
-            col(a2, np.int64), col(ql, np.int64), col(crc, np.int32),
-            col(b1, np.int64), col(b2, np.int64), col(cl, np.int64))
-    buf = np.empty(n * 192, dtype=np.uint8)
-    total = library().mhap_format_m4(
-        *[c.ctypes.data for c in cols], n, buf.ctypes.data, buf.size)
-    if total < 0:
-        raise RuntimeError("mhap_format_m4 buffer overflow")
-    return buf[:total].tobytes().decode("ascii").split("\n")
+def m4_sort(data: np.ndarray, threads=None) -> np.ndarray:
+    """The newline-terminated lines of the uint8 buffer ``data`` in the
+    order Python's ``sorted`` gives their ``str`` (byte order for UTF-8),
+    on at most ``threads`` threads (default ``host_threads()``)."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    out = np.empty_like(data)
+    if data.size and m4_library().mhap_m4_sort(
+            data.ctypes.data, data.size, out.ctypes.data,
+            threads or host_threads()) < 0:
+        raise ValueError("M4 lines must each end with a newline")
+    return out
 
 
 def sw_align(query: bytes, ref: bytes, match: int = 2, mismatch: int = -2,

@@ -153,14 +153,19 @@ def test_self_times_add_up_to_the_job(traced):
 
 
 def test_counters_are_the_overlappers_integer_stats(traced):
+    """The job's counters: the overlapper's integer stats and its counts
+    of M4 lines formatted in C and in Python, which stay out of the
+    stats (the CLI's stats block)."""
     _, _, job, ov, _ = traced
     want = {k: v for k, v in ov.total_stats().items()
             if isinstance(v, int)}
-    assert job.counters == want
     assert set(want) == {"matches_processed", "sequences_fully_compared",
                          "elements_processed", "sequences_hit",
                          "sequences_searched"}
+    assert job.counters == {**want, "m4_lines_native": ov.m4_counts[
+        "m4_lines_native"], "m4_lines_python": 0}
     assert 0 < want["matches_processed"] <= want["sequences_fully_compared"]
+    assert job.counters["m4_lines_native"] == want["matches_processed"]
 
 
 def test_spans_nest_and_close_on_errors_and_disable():
