@@ -246,15 +246,18 @@ def run_overlap(o, ov) -> None:
     if q_file:
         for qf in list_sequence_files(q_file):
             t0 = time.time()
-            if qf.endswith(".dat"):
-                queries = ov.read_dat(qf, offset, fwd_only=True)
-            else:
-                qh, qreads = _load_reads(qf, store_full_id)
-                queries = ov.sketch_reads(qreads, qh, offset=offset,
-                                          do_rc=False)
-            q_sel = np.arange(len(queries))
-            write_lines(ov._gather_lines(ov._find_matches(
-                box, index, queries, q_sel, False)), out, paf)
+            with trace.span("query"):
+                if qf.endswith(".dat"):
+                    queries = ov.read_dat(qf, offset, fwd_only=True)
+                else:
+                    qh, qreads = _load_reads(qf, store_full_id)
+                    queries = ov.sketch_reads(qreads, qh, offset=offset,
+                                              do_rc=False)
+                trace.count("query_files", 1)
+                trace.count("query_rows", len(queries))
+                q_sel = np.arange(len(queries))
+                write_lines(ov._gather_lines(ov._find_matches(
+                    box, index, queries, q_sel, False)), out, paf)
             offset += len(queries)
             print(f"Processed {len(queries)} to sequences.",
                   file=sys.stderr)
@@ -363,8 +366,11 @@ def run_precompute(o, ov) -> None:
         out_path = os.path.join(to_dir, name + ".dat")
         whole = ov.whole_store(store)
         if whole is not None:  # None on a rank other than 0
-            datstore.write_dat(out_path, whole,
-                               ordered_kmer_size=ov.cfg["ordered_kmer_size"])
+            with trace.span("dat.write"):
+                written = datstore.write_dat(
+                    out_path, whole,
+                    ordered_kmer_size=ov.cfg["ordered_kmer_size"])
+            trace.count("dat_records_written", written)
         print(f"Processed {len(store)} sequences (fwd and rev).",
               file=sys.stderr)
         print(f"Read, hashed, and stored file {pf} to {out_path}.",

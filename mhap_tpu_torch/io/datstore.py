@@ -27,6 +27,7 @@ import torch
 from ..device import resolve_device
 from ..ops.bottomk import PAD_HASH, PAD_POS
 from ..pipeline.overlapper import SketchStore
+from ..utils import trace
 
 
 def _write_utf(s: str) -> bytes:
@@ -37,14 +38,16 @@ def _write_utf(s: str) -> bytes:
 
 
 def write_dat(path: str, store: SketchStore, fwd_only: bool = False,
-              ordered_kmer_size: int = 12) -> None:
+              ordered_kmer_size: int = 12) -> int:
     """Writes every row of ``store`` (its forward rows with fwd_only),
-    skipping padding rows of header id 0."""
-    mh = store.host("minhash").astype(">i4")
-    oh = store.host("ordered_h")
-    op = store.host("ordered_p")
-    om = store.host("ordered_m")
-    nk = store.host("num_kmers")
+    skipping padding rows of header id 0; returns the records written."""
+    with trace.span("dat.wait"):
+        mh = store.host("minhash").astype(">i4")
+        oh = store.host("ordered_h")
+        op = store.host("ordered_p")
+        om = store.host("ordered_m")
+        nk = store.host("num_kmers")
+    written = 0
     with open(path, "wb") as f:
         for i in range(len(store)):
             fwd = bool(store.is_fwd[i])
@@ -68,15 +71,16 @@ def write_dat(path: str, store: SketchStore, fwd_only: bool = False,
                 pairs.tobytes()))
             f.write(struct.pack(">Bi", 1 if fwd else 0, len(payload)))
             f.write(payload)
+            written += 1
+    return written
 
 
-def read_dat(path: str, offset: int = 0, fwd_only: bool = False,
-             sketch_size: int = 1536, device="cuda") -> SketchStore:
-    """A ``.dat`` file as a dense store: header ids shifted by
+def parse_dat(data: bytes, offset: int = 0, fwd_only: bool = False,
+              sketch_size: int = 1536) -> dict:
+    """The records of a ``.dat`` file's bytes as host columns, under the
+    names of ``SketchStore``'s arguments: header ids shifted by
     ``offset``, ordered sketches padded with the scorer's sentinels (or
     cut) to ``sketch_size`` entries."""
-    with open(path, "rb") as f:
-        data = f.read()
     recs = []
     pos, n = 0, len(data)
     while pos + 5 <= n:
@@ -113,18 +117,35 @@ def read_dat(path: str, offset: int = 0, fwd_only: bool = False,
         oh[i, :m], op[i, :m], om[i] = r[6][:, 0], r[6][:, 1], m
     mh = (np.stack([r[4] for r in recs]).astype(np.int32) if N
           else np.zeros((0, H), np.int32))
-    dev = resolve_device(device)
-    return SketchStore(
+    return dict(
         header_id=np.asarray([r[0] for r in recs], np.int64),
         is_fwd=np.asarray([r[1] for r in recs], bool),
         length=np.asarray([r[3] for r in recs], np.int32),
-        minhash=torch.from_numpy(mh).to(dev),
-        ordered_h=torch.from_numpy(oh).to(dev),
-        ordered_p=torch.from_numpy(op).to(dev),
-        ordered_m=torch.from_numpy(om).to(dev),
-        num_kmers=torch.from_numpy(
-            np.asarray([r[5] for r in recs], np.int32)).to(dev),
+        minhash=mh, ordered_h=oh, ordered_p=op, ordered_m=om,
+        num_kmers=np.asarray([r[5] for r in recs], np.int32),
         headers=[r[2] for r in recs])
+
+
+# the columns of a store that live on its device
+_DEVICE_COLS = ("minhash", "ordered_h", "ordered_p", "ordered_m",
+                "num_kmers")
+
+
+def read_dat(path: str, offset: int = 0, fwd_only: bool = False,
+             sketch_size: int = 1536, device="cuda") -> SketchStore:
+    """A ``.dat`` file as a dense store (``parse_dat``), its sketch
+    columns copied to ``device``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    with trace.span("dat.parse"):
+        cols = parse_dat(data, offset, fwd_only, sketch_size)
+    trace.count("dat_records", len(cols["header_id"]))
+    trace.count("dat_bytes", len(data))
+    dev = resolve_device(device)
+    with trace.span("load.wait"):
+        for name in _DEVICE_COLS:
+            cols[name] = torch.from_numpy(cols[name]).to(dev)
+    return SketchStore(**cols)
 
 
 def write_npz(path: str, store: SketchStore) -> None:

@@ -30,6 +30,7 @@ import torch
 
 from ..device import resolve_device
 from ..io.filter import GuavaBloomFilter
+from ..utils import trace
 
 _I32_MAX = (1 << 31) - 1
 
@@ -39,11 +40,12 @@ class VectorFrequencyFilter:
         dev = resolve_device(device)
         self.no_tf = fc.no_tf
         self.remove_unique = fc.remove_unique
-        self.valid = None if fc.valid is None else fc.valid.to(dev)
-        self.keys = fc.keys.to(dev)
-        self.sidf = torch.cat([fc.sidf, torch.tensor([float(fc.range)],
-                                                     dtype=torch.float64)]
-                              ).to(dev)
+        sidf = torch.cat([fc.sidf, torch.tensor([float(fc.range)],
+                                                dtype=torch.float64)])
+        with trace.span("load.wait"):  # the filter's copies to the device
+            self.valid = None if fc.valid is None else fc.valid.to(dev)
+            self.keys = fc.keys.to(dev)
+            self.sidf = sidf.to(dev)
 
     @property
     def device(self) -> torch.device:

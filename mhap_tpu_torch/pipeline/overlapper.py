@@ -365,7 +365,7 @@ class TorchOverlapper:
                 edges) -> M4Lines:
         """MatchResult coordinate flips + M4 formatting (MatchResult.java;
         overlapper.py:1839): in C (``utils/native.m4_format``) unless a
-        store carries header strings, then Python's %-format."""
+        store carries header strings, then ``_format_headers``."""
         T = len(qi)
         if T == 0:
             return M4Lines()
@@ -390,15 +390,25 @@ class TorchOverlapper:
             return M4Lines(m4_format(qs.header_id[qi], cs.header_id[ci], err,
                                      raw, qrc, fa1, fa2, qlen, crc, fb1, fb2,
                                      clen), T)
-        self.m4_counts["m4_lines_python"] += T
-        disp_q = [qs.display(int(q)) for q in qi]
-        disp_c = [cs.display(int(c)) for c in ci]
-        return M4Lines.of(
-            ["%s %s %.6f %.6f %d %d %d %d %d %d %d %d" % t
-             for t in zip(disp_q, disp_c, err.tolist(), raw.tolist(),
-                          qrc.tolist(), fa1.tolist(), fa2.tolist(),
-                          qlen.tolist(), crc.tolist(), fb1.tolist(),
-                          fb2.tolist(), clen.tolist())])
+        return self._format_headers(qs, cs, qi, ci, err, raw, qrc, fa1, fa2,
+                                    qlen, crc, fb1, fb2, clen)
+
+    def _format_headers(self, qs: SketchStore, cs: SketchStore, qi, ci, err,
+                        raw, qrc, fa1, fa2, qlen, crc, fb1, fb2,
+                        clen) -> M4Lines:
+        """``_format``'s lines with Python's %-format, for stores that
+        carry header strings (``.dat`` records, ``--store-full-id``): the
+        A and B ids are the reads' display names."""
+        with trace.span("format.python"):
+            self.m4_counts["m4_lines_python"] += len(qi)
+            disp_q = [qs.display(int(q)) for q in qi]
+            disp_c = [cs.display(int(c)) for c in ci]
+            return M4Lines.of(
+                ["%s %s %.6f %.6f %d %d %d %d %d %d %d %d" % t
+                 for t in zip(disp_q, disp_c, err.tolist(), raw.tolist(),
+                              qrc.tolist(), fa1.tolist(), fa2.tolist(),
+                              qlen.tolist(), crc.tolist(), fb1.tolist(),
+                              fb2.tolist(), clen.tolist())])
 
     def _vote(self, index, queries: SketchStore, q_sel: np.ndarray):
         """Pairs (position in ``q_sel``, store row) with at least

@@ -10,7 +10,8 @@ counters, kept in memory; off unless a caller turns it on.
     trace.disable()
     trace.reset()
 
-The port marks a span with ``with trace.span(name):``.  Off, ``span``
+The port marks a span with ``with trace.span(name):`` and adds to a
+counter of the open job with ``trace.count(name, n)``.  Off, ``span``
 returns one shared object whose enter and exit do nothing: no clock read,
 no allocation, no record.  On, each span becomes a record ``Span(job, name,
 parent, t0, t1)`` on ``time.perf_counter_ns()``.  The outermost open span
@@ -152,6 +153,15 @@ def span(name: str):
     is on; its ``set_counters(stats)`` copies a mapping's integer entries
     into the job's counters."""
     return _Open(name) if _T.on else _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the open job's counter ``name`` while the tracer is
+    on; does nothing outside a job."""
+    t = _T
+    if t.on and t.job is not None:
+        c = t.job.counters
+        c[name] = c.get(name, 0) + n
 
 
 def enable() -> None:
