@@ -13,7 +13,7 @@
 //
 // What bounds it on the H100: operations.  A cell reads one byte of r
 // and needs at least 31 integer operations (the recurrences, the stat
-// selections, the running best; chip_smoke.py SW_OPS_PER_CELL), which
+// selections, the running best; scripts/kernel_ab.py SW_OPS_PER_CELL), which
 // this kernel does in ~48 instructions with its bookkeeping; the inputs
 // are a few KB a pair.
 //

@@ -1,6 +1,6 @@
 """Rank workers for ``parallel/launch.run_ranks``: the sharded path as the
-tests, ``chip_smoke.py`` and ``scripts/sharded_check.py`` drive it, with
-what they measure on each rank.  Module-level functions of the package,
+CPU and card tests and ``scripts/sharded_check.py`` drive it, with what
+they measure on each rank.  Module-level functions of the package,
 so a spawned rank imports them without JAX."""
 
 from __future__ import annotations

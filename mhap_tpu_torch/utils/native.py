@@ -5,8 +5,8 @@ built with ``make -C native`` on first use, gives the port the local
 Smith-Waterman of EstimateROC's per-pair adjudication (native/sw.cc) and
 canonical MurmurHash3 x86_32 over a byte string (native/murmur3.c;
 CountMin's object hashing); ``library()`` hands the loaded library to
-callers that declare other entries themselves (chip_smoke.py's native
-scorer check).
+callers that declare other entries themselves (the card tests' native
+scorer check, ``tests/torch_card_inputs.native_scorer``).
 
 The port's own M4 line library (``mhap_tpu_torch/csrc/m4_lines.cc``)
 formats and sorts a job's M4 lines as one byte buffer

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""The JAX package's goldens for chip_smoke.py phase 10 (the Canu path),
-made on the CPU:
+"""The JAX package's goldens for the Canu path's card tests
+(tests/test_torch_card_paths.py), made on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/canu_goldens.py [--n 2048] [--out DIR]
 
-It builds phase 10's input with ``chip_smoke.canu_input`` (two FASTA
+It builds their input with ``torch_card_inputs.canu_input`` (two FASTA
 blocks of n / 2 reads and the filter file), then runs
   1. the JAX CLI ``-p blocks/ -q dats/`` and ``-s dats/block0.dat -q
      querydir/`` (querydir holding block1.dat), both with ``-f kmers.txt
@@ -45,12 +45,12 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=2048)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     import bench
-    import chip_smoke
+    import torch_card_inputs
 
     out = args.out or tempfile.mkdtemp()
-    reads, blocks, kpath = chip_smoke.canu_input(bench, out, args.n)
+    reads, blocks, kpath = torch_card_inputs.canu_input(bench, out, args.n)
     dats, qdir = os.path.join(out, "dats"), os.path.join(out, "querydir")
     os.makedirs(dats, exist_ok=True)
     os.makedirs(qdir, exist_ok=True)

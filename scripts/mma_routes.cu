@@ -9,8 +9,8 @@
 //  (3) times pure 16-byte streaming stores (st.global.cs) of 16 MiB and
 //      256 MiB, kernel 6's output sizes at [2,048]^2 and [8,192]^2, and
 //      cudaMemsetAsync of the same.
-// chip_smoke.py's TC_B1_OPS_PER_SM_CLOCK (kernel 6's bound) rests on (2);
-// rerun it on another card, or before kernel 6 changes its route.
+// TC_B1_OPS_PER_SM_CLOCK in scripts/kernel_ab.py (kernel 6's bound) rests
+// on (2); rerun it on another card, or before kernel 6 changes its route.
 // Build and run on the card, from the repository's root (scratch_chip/ is
 // ignored by git):
 //   mkdir -p scratch_chip && nvcc -gencode arch=compute_90a,code=sm_90a \

@@ -1,25 +1,27 @@
 #!/usr/bin/env python3
-"""The JAX package's goldens for chip_smoke.py phase 12 (EstimateROC),
-made on the CPU:
+"""The JAX package's goldens for EstimateROC's card tests
+(tests/test_torch_card_paths.py), made on the CPU:
 
     JAX_PLATFORMS=cpu python scripts/roc_goldens.py [--out DIR]
 
 For two inputs, each with its truth placements:
   * lognormal10k, as bench.bench_config_lognormal builds it
     (``bench.make_reads_placed(10_000, seed=SEED + 1)``);
-  * filtered2k (``chip_smoke.filtered2k_placed``: 2,048 reads from a
-    genome with a 2 kb repeat implanted 40 times) with its filter file;
+  * filtered2k (``torch_card_inputs.filtered2k_placed``: 2,048 reads
+    from a genome with a 2 kb repeat implanted 40 times) with its filter
+    file;
 it takes the native binary's line set on those reads (with ``-f`` for
 filtered2k; sha256-equal to the JAX package's and to the port's: 158,246
-and 286,410 lines), sorted as overlap_self returns them, writes the truth, overlap and FASTA files with
-``chip_smoke.roc_files`` and runs the JAX ``EstimateROC(min_ovl_len=500,
-num_trials=2000, do_dp=True)`` through ``estimate_sensitivity``,
+and 286,410 lines), sorted as overlap_self returns them, writes the
+truth, overlap and FASTA files with ``torch_card_inputs.roc_files`` and
+runs the JAX ``EstimateROC(min_ovl_len=500, num_trials=2000,
+do_dp=True)`` through ``estimate_sensitivity``,
 ``estimate_specificity`` and ``estimate_ppv(batch_dp=True)``, as
 bench_config_lognormal does.  The batched Smith-Waterman call of that
 run, if any, is recorded by a wrapper around
 ``mhap_tpu.ops.swalign.sw_align_batch`` set in this process only (the
 package's files are not touched): its pairs' shapes and the sha256 of
-its eight output columns (``chip_smoke.sw_sha256``).  Then the JAX
+its eight output columns (``torch_card_inputs.sw_sha256``).  Then the JAX
 tool's entry point, ``python -m mhap_tpu.tools.estimate_roc truth.m4
 ovl.mhap reads.fa 500 2000 true`` (per-pair native DP), as a subprocess:
 its three stdout lines.  Prints one JSON line per input with all of it
@@ -45,7 +47,7 @@ def golden(name, reads, placements, genome_len, extra, out):
     import numpy as np
 
     import bench
-    import chip_smoke
+    import torch_card_inputs as cs
     from mhap_tpu.ops import swalign
     from mhap_tpu.tools.estimate_roc import EstimateROC
 
@@ -57,8 +59,8 @@ def golden(name, reads, placements, genome_len, extra, out):
                native_seconds=time.time() - t0)
     # in the overlappers' order (overlap_self returns the lines sorted):
     # EstimateROC numbers the overlaps in file order for its PPV draws
-    truth, ovls, fa = chip_smoke.roc_files(bench, out, reads, placements,
-                                           genome_len, sorted(lines))
+    truth, ovls, fa = cs.roc_files(bench, out, reads, placements,
+                                   genome_len, sorted(lines))
     calls = []
     plain = swalign.sw_align_batch
 
@@ -93,7 +95,7 @@ def golden(name, reads, placements, genome_len, extra, out):
         res.update(disputed=len(ql), q_shape=list(qshape),
                    r_shape=list(rshape), max_cells=int(cells.max()),
                    cells=int(cells.sum()),
-                   sw_sha256=chip_smoke.sw_sha256(sw))
+                   sw_sha256=cs.sw_sha256(sw))
     t0 = time.time()
     r = subprocess.run([sys.executable, "-m", "mhap_tpu.tools.estimate_roc",
                         truth, ovls, fa, "500", "2000", "true"], cwd=REPO,
@@ -109,9 +111,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     import bench
-    import chip_smoke
+    import torch_card_inputs as cs
 
     out = args.out or tempfile.mkdtemp()
     reads, placements, glen = bench.make_reads_placed(
@@ -120,10 +122,10 @@ def main() -> int:
     os.makedirs(d, exist_ok=True)
     print(json.dumps(golden("lognormal10k", reads, placements, glen, (),
                             d)), flush=True)
-    reads, placements, glen, _ = chip_smoke.filtered2k_placed(bench)
+    reads, placements, glen, _ = cs.filtered2k_placed(bench)
     d = os.path.join(out, "filtered2k")
     os.makedirs(d, exist_ok=True)
-    _, fpath = chip_smoke.filtered2k(bench, d)
+    _, fpath = cs.filtered2k(bench, d)
     print(json.dumps(golden("filtered2k", reads, placements, glen,
                             ("-f", fpath), d)), flush=True)
     return 0

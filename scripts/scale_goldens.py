@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""The native reference's goldens for chip_smoke.py phase 14 and
-scripts/torch_scale_check.py (scale40k, scale100k, repeat40k), made on
-the CPU:
+"""The native reference's goldens for the scale inputs' card tests
+(tests/test_torch_card_paths.py: scale40k, scale100k, repeat40k), made
+on the CPU:
 
     python scripts/scale_goldens.py [--configs scale40k,scale100k,repeat40k]
 
-Each input is built by ``chip_smoke.scale_input`` exactly as bench.py's
+Each input is built by ``torch_card_inputs.scale_input`` as bench.py's
 bench_config_scale40k, bench_config_scale100k and bench_config_repeat40k
 build it, then run once through ``bench.bench_native`` (the native C++
 reference, native/mhap_cpu.cc, on every host core; ``-f kmers.txt`` for
@@ -28,18 +28,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main() -> int:
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     import bench
-    import chip_smoke
+    import torch_card_inputs
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--configs", default=",".join(chip_smoke.SCALE_INPUTS))
+    ap.add_argument("--configs",
+                    default=",".join(torch_card_inputs.SCALE_INPUTS))
     args = ap.parse_args()
     res = {}
     for name in args.configs.split(","):
         with tempfile.TemporaryDirectory() as td:
             t0 = time.time()
-            reads, fpath = chip_smoke.scale_input(bench, name, td)
+            reads, fpath = torch_card_inputs.scale_input(bench, name, td)
             made = time.time() - t0
             extra = ["-f", fpath] if fpath else []
             _, n_lines, threads, sha, times = bench.bench_native(

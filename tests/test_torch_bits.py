@@ -26,11 +26,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bits_adversarial
 from mhap_tpu.sketches import bits as jbits
 from mhap_tpu_torch.ops import bits as ops_bits
 from mhap_tpu_torch.ops.bits_kernels import bit_similarity
 from mhap_tpu_torch.sketches import bits as tbits
+from torch_card_inputs import bits_adversarial
 
 torch.set_num_threads(1)
 POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.int64)
@@ -52,8 +52,9 @@ def random_words(rng, n, w, dt):
 
 
 def test_adversarial_set_equals_jax_on_uint32_and_numpy_on_uint64():
-    """The chip's adversarial set (chip_smoke.bits_adversarial): bit-equal
-    to JAX on uint32 words, to 1 - popcount / 64W on uint64 words."""
+    """The card's adversarial set (torch_card_inputs.bits_adversarial):
+    bit-equal to JAX on uint32 words, to 1 - popcount / 64W on uint64
+    words."""
     cases = bits_adversarial()
     assert len(cases) == 96
     for a, b in cases:
@@ -136,7 +137,8 @@ def test_inputs_checked_and_empty_sides():
 
 def test_cuda_without_gpu_raises():
     if torch.cuda.is_available():
-        pytest.skip("a GPU is present: chip_smoke.py phase 13 runs it")
+        pytest.skip("a GPU is present: test_torch_card_kernels.py "
+                    "test_kernel6 runs it")
     a = np.zeros((2, 2), np.uint32)
     before = bit_similarity.launches
     with pytest.raises(RuntimeError):

@@ -4,11 +4,13 @@ the bloom filter through a .dat file, a one-rank sharded run, an
 EstimateROC estimate whose disputed pair goes through the batched
 Smith-Waterman, the numpy oracle's overlap_self and a CPU
 bit_similarity_matrix) with both blocked, an import scan
-of its sources, the device check, and chip_smoke.py's refusal to run
-without a GPU or the repo."""
+of its sources, the device check, chip_smoke.py's refusal to run
+without a GPU or the repo, and the card tests collected and skipped
+without a GPU and with both blocked."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CARD_TESTS = ["test_torch_card_kernels.py", "test_torch_card_paths.py"]
 
 _NO_JAX_RUN = r"""
 import sys
@@ -131,10 +134,11 @@ def imported_roots(path: str) -> set:
 
 
 def port_sources() -> list:
-    files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "profile_stages.py"),
-             os.path.join(REPO, "scripts", "torch_scale_check.py"),
-             os.path.join(REPO, "scripts", "scale_goldens.py")]
+    files = [os.path.join(REPO, "tests", n) for n in CARD_TESTS
+             + ["torch_card_inputs.py"]]
+    files += [os.path.join(REPO, "chip_smoke.py"),
+              os.path.join(REPO, "scripts", "kernel_ab.py"),
+              os.path.join(REPO, "scripts", "scale_goldens.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "mhap_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return files
@@ -178,3 +182,29 @@ def test_chip_smoke_refuses_without_gpu_or_repo(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and r.stdout == ""
+
+
+_CARD_RUN = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["mhap_tpu"] = None
+import pytest
+sys.exit(pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q",
+                      *sys.argv[1:]]))
+"""
+
+
+def test_card_tests_skip_without_a_card():
+    """The card's test files collect with JAX and the JAX package blocked
+    and without tests/conftest.py, and skip every case without a GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the card tests would run for real")
+    r = subprocess.run([sys.executable, "-c", _CARD_RUN,
+                        *(os.path.join("tests", n) for n in CARD_TESTS)],
+                       cwd=REPO, capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    counts = dict((w, int(n)) for n, w in re.findall(
+        r"(\d+) (passed|failed|skipped|errors?|xfailed|xpassed)",
+        r.stdout.splitlines()[-1]))
+    assert list(counts) == ["skipped"] and counts["skipped"] >= 40, r.stdout

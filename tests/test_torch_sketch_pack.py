@@ -309,12 +309,22 @@ def test_upload_counter(rows):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width_extra", [0, 5],
-                         ids=["vector_stores", "byte_stores"])
-def test_pack_kernel_bit_equal_on_the_card(width_extra):
+@pytest.mark.parametrize("source, width_extra",
+                         [("seeded", 0), ("seeded", 5), ("primary", 0)],
+                         ids=["vector_stores", "byte_stores",
+                              "primary_reads"])
+def test_pack_kernel_bit_equal_on_the_card(source, width_extra):
+    """Seeded reads, and the main path's shape: bench.py's 1,024 primary
+    reads, every third lower case (rows [2,039, 2,944])."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
-    reads = seeded_reads(6, n=400)
+    if source == "seeded":
+        reads = seeded_reads(6, n=400)
+    else:
+        import bench
+
+        reads = [r.lower() if i % 3 == 0 else r
+                 for i, r in enumerate(bench.make_reads())]
     (raw, start, length, fwd), rows = strand_rows(reads, True)
     # every byte value once, both strands, after the reads
     every = torch.arange(256, dtype=torch.uint8)

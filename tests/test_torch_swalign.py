@@ -19,9 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dna as random_dna
-from chip_smoke import mutate_dna as mutate
-from chip_smoke import sw_adversarial_pairs, sw_tie_pairs
 from mhap_tpu.ops.swalign import sw_align_batch as sw_jax
 from mhap_tpu_torch.ops.swalign import COLS, NEG, sw_align_batch
 from mhap_tpu_torch.ops.swalign import pack_pairs as pack
@@ -30,6 +27,9 @@ from mhap_tpu_torch.ops.swalign_kernels import (LANES, PACKED_MAX, ROWS,
 from mhap_tpu_torch.ops.swalign_kernels import \
     sw_align_batch as sw_wrapper
 from mhap_tpu_torch.utils import native
+from torch_card_inputs import dna as random_dna
+from torch_card_inputs import mutate_dna as mutate
+from torch_card_inputs import sw_adversarial_pairs, sw_tie_pairs
 
 torch.set_num_threads(1)
 
